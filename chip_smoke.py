@@ -6,26 +6,42 @@
 Needs a CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and ``make``/``g++``;
 exits non-zero without them. Phases:
 
-1. build: compiles the fused scan kernels (``semtools_tpu_torch/csrc``) for
-   sm_90a and the native tokenizer (``make -C cpp``);
-2. kernels: each kernel against its plain PyTorch version on the card, at
-   N = 2M and 10M rows x D = 256 f32 (plus bf16 at 2M), Q in {1, 8, 32},
-   k in {3, 10, 64}, ragged n_true, planted duplicate rows across sub-tile
-   boundaries. Sims agree rank by rank within 1e-5; indices must be equal
-   except at ranks where the plain version's neighbouring sims lie within
-   1e-5 (near-ties of summation order); planted duplicates resolve to the
-   lower index. CUDA-event times of kernel and plain path at N = 2M, Q = 8,
-   k = 10;
-3. main path: ``semtools search`` through ``semtools_tpu_torch.cli.main``
+1. build: compiles the scan kernels (``semtools_tpu_torch/csrc``, one
+   ``nvcc`` per source, all at once) for sm_90a and the native tokenizer
+   (``cpp/`` into ``semtools_tpu_torch/_build/``);
+2. f32 kernels: each fused kernel against its plain PyTorch version on the
+   card, at N = 2M and 10M rows x D = 256 f32 (plus bf16 at 2M),
+   Q in {1, 8, 32}, k in {3, 10, 64}, ragged n_true, planted duplicate
+   rows across sub-tile boundaries. Sims agree rank by rank within 1e-5;
+   indices must be equal except at ranks where the plain version's
+   neighbouring sims lie within 1e-5 (near-ties of summation order);
+   planted duplicates resolve to the lower index. CUDA-event times of
+   kernel and plain path at N = 2M, Q = 8, k = 10;
+3. int8 kernels: each int8 kernel (plain and masked) against its plain
+   version on int8 corpora of N = 2M and 10M rows x 256 (``quantize_global``
+   of seeded unit rows; ragged n_true; planted duplicates), Q in {1, 8, 32},
+   k in {3, 10, 64}, with no mask, a random 50% mask and a mask keeping
+   fewer than k rows. Integer arithmetic: sims equal rank by rank, indices
+   equal wherever finite, duplicates lowest first. CUDA-event times at
+   N = 10M, Q = 8, k = 10;
+4. main path: ``semtools search`` through ``semtools_tpu_torch.cli.main``
    over ~1M lines of seeded synthetic text in 500 files (the corpus sits on
    the card as 1M x 256 f32) with the built-in 65,536 x 256 embedder, one
    query and an 8-query ``-Q`` batch, plus a 2,000-line search that routes
-   to the single-phase kernel. Hits must equal the plain scan of the same
-   embeddings (same tolerance), and every kernel's launch count from this
-   phase must be non-zero.
+   to the single-phase kernel;
+5. workspace: under a fresh HOME, ``workspace use``, a cold ``search -w``
+   over the same 1M lines (embed + upsert; the store serves them from its
+   int8 slot corpus, 256 MB on the card), a warm repeat, a ``-Q`` batch, a
+   300-file subset (the masked int8 kernels), the same query on the f32
+   tier (``SEMTOOLS_TPU_STORE_INT8=0``: the fused f32 kernels), a one-line
+   edit (line reuse) and ``workspace status``.
 
-The last line of stdout is ``{"ok": true, "device": {...}}``; the line
-before it is the per-kernel JSON summary.
+Phases 4 and 5 check their hits against a plain exact scan of the same
+embeddings on the card (tolerance as in phase 2), and every kernel of each
+path must show launches in that path's run (counts reset just before it).
+The last line of stdout is ``{"ok": true, "device": {...}}``; the lines
+before it are the card's name and power limit and the per-kernel JSON
+summary.
 """
 
 from __future__ import annotations
@@ -45,16 +61,34 @@ REPO = Path(__file__).resolve().parent
 TOL = 1e-5
 SEED = 20261016
 N_FILES, LINES_PER_FILE = 500, 2000  # the main path's ~1M-line corpus
-SOURCE = "semtools_tpu_torch/csrc/fused_scan.cu"
+SUBSET_FILES = 300  # the workspace phase's path subset (60% of the slots)
+D = 256
+FUSED_SOURCE = "semtools_tpu_torch/csrc/fused_scan.cu"
+INT8_SOURCE = "semtools_tpu_torch/csrc/int8_scan.cu"
 REPLACES = {
     "fused_tilemax": "semtools_tpu/ops/pallas_scan.py:269",
     "fused_rescan": "semtools_tpu/ops/pallas_scan.py:293",
     "fused_scan_candidates": "semtools_tpu/ops/pallas_scan.py:152",
+    "int8_tilemax": "semtools_tpu/ops/int8_scan.py:118",
+    "int8_rescan": "semtools_tpu/ops/int8_scan.py:133",
+    "int8_tilemax_masked": "semtools_tpu/ops/int8_scan.py:217",
+    "int8_rescan_masked": "semtools_tpu/ops/int8_scan.py:236",
 }
+# Data-sheet peaks of one H100 SXM at 700 W: HBM bytes/s, f32 FLOP/s on the
+# CUDA cores, int8 tensor-core OP/s.
+HBM_BPS = 3.35e12
+PEAK_OPS = {"f32": 67e12, "int8": 1979e12}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound(nbytes: float, ops: float, kind: str):
+    """(least ms the card could take, what bounds it)."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def agree(what, vals, ref_vals, idx=None, ref_idx=None) -> float:
@@ -84,6 +118,20 @@ def agree(what, vals, ref_vals, idx=None, ref_idx=None) -> float:
     return err
 
 
+def equal(what, vals, ref_vals, idx=None, ref_idx=None) -> float:
+    """Integer sims: values equal rank by rank, indices equal wherever the
+    values are finite. Returns the max abs difference (0.0)."""
+    import torch
+
+    if not torch.equal(vals, ref_vals):
+        raise AssertionError(f"{what}: sims differ from the plain version")
+    if idx is not None:
+        fin = torch.isfinite(ref_vals)
+        if not torch.equal(idx[fin], ref_idx[fin]):
+            raise AssertionError(f"{what}: indices differ from the plain version")
+    return 0.0
+
+
 def cuda_ms(fn, reps: int = 20) -> float:
     import torch
 
@@ -100,53 +148,56 @@ def cuda_ms(fn, reps: int = 20) -> float:
 
 def build_phase():
     from semtools_tpu_torch.ops import kernels
+    from semtools_tpu_torch.ops.fused_scan import SUB_ROWS
+    from semtools_tpu_torch.utils import native
 
     t0 = time.perf_counter()
     path = kernels.build()
     lib = kernels.library()
-    from semtools_tpu_torch.ops.fused_scan import SUB_ROWS
-
     if lib.semtools_scan_rows() != SUB_ROWS:
         raise AssertionError("kernel rows per block disagree with fused_scan.SUB_ROWS")
     log(f"build: kernels {path.name} ready in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {kernels.last_build_seconds} s)")
+        f"(nvcc {kernels.last_build_seconds} s, {len(kernels.SOURCES)} sources in parallel)")
     report = path.with_suffix(".log").read_text()
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
     spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", report)]
     log(f"build: ptxas: {len(regs)} kernel instances, {min(regs)}-{max(regs)} registers, "
         f"{sum(1 for b in spills if b)} with spill stores (at most {max(spills)} bytes)")
     t0 = time.perf_counter()
-    proc = subprocess.run(["make", "-C", str(REPO / "cpp")], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"make -C cpp failed:\n{proc.stderr[-2000:]}")
-    log(f"build: native tokenizer (make -C cpp) in {time.perf_counter() - t0:.2f} s")
+    if not native.build():
+        raise RuntimeError(f"native tokenizer build (make -C cpp) failed: {native.lib_path()}")
+    log(f"build: native tokenizer into {native.lib_path().relative_to(REPO)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+def unit_rows(n, gen):
+    import torch
+
+    e = torch.randn((n, D), generator=gen, device="cuda")
+    return e / e.norm(dim=1, keepdim=True)
 
 
 def make_corpus(n, dtype, n_true, gen):
-    import torch
-
-    e = torch.randn((n, 256), generator=gen, device="cuda")
-    e /= e.norm(dim=1, keepdim=True)
+    e = unit_rows(n, gen)
     dups = [5, 127, 128, n // 2, n_true - 1]  # inside, across sub-tiles, far
     e[dups[1:]] = e[5].clone()
     return e.to(dtype), dups
 
 
-def kernel_phase():
+def f32_kernel_phase():
     import torch
 
     from semtools_tpu_torch.ops import fused_scan as fs
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    errs = {name: 0.0 for name in REPLACES}
+    errs = {name: 0.0 for name in ("fused_tilemax", "fused_rescan", "fused_scan_candidates")}
     times = {}
     cases = [(n, torch.float32) for n in (2_000_000, 10_000_000)] + [(2_000_000, torch.bfloat16)]
     for n, dtype in cases:
         n_true = n - 777
         e, dups = make_corpus(n, dtype, n_true, gen)
         for qn in (1, 8, 32):
-            q = torch.randn((qn, 256), generator=gen, device="cuda")
-            q /= q.norm(dim=1, keepdim=True)
+            q = unit_rows(qn, gen)
             q[0] = e[5].float()
             ref_max = fs.tilemax_reference(q, e, n_true)
             errs["fused_tilemax"] = max(errs["fused_tilemax"], agree(
@@ -168,36 +219,146 @@ def kernel_phase():
                 del cv, ci, cvr, cir
             log(f"kernels: {str(dtype)[6:]} N={n} n_true={n_true} Q={qn} k=3,10,64: "
                 f"agree (max err so far {max(errs.values()):.3g})")
-        if n == 2_000_000:
-            times[str(dtype)[6:]] = time_kernels(e, n_true, gen)
+        if n == 2_000_000 and dtype == torch.float32:
+            times = time_f32_kernels(e, n_true, gen)
+        elif n == 2_000_000:
+            time_f32_kernels(e, n_true, gen)  # bf16: logged only
         del e
         torch.cuda.empty_cache()
     return errs, times
 
 
-def time_kernels(e, n_true, gen):
-    import torch
-
+def time_f32_kernels(e, n_true, gen):
     from semtools_tpu_torch.ops import fused_scan as fs
     from semtools_tpu_torch.ops.scan import _topk_chunk
 
-    q = torch.randn((8, 256), generator=gen, device="cuda")
-    q /= q.norm(dim=1, keepdim=True)
-    k = 10
+    qn, k = 8, 10
+    q = unit_rows(qn, gen)
     ids = fs.select_subtiles(fs.tilemax_reference(q, e, n_true), k)
+    item = e.element_size()
+    s = fs._num_blocks(n_true)
+    u = ids.unique().numel()
+    scan_ops = 2.0 * qn * n_true * D
     t = {
-        "fused_tilemax": (cuda_ms(lambda: fs.tilemax(q, e, n_true)),
-                          cuda_ms(lambda: fs.tilemax_reference(q, e, n_true))),
-        "fused_rescan": (cuda_ms(lambda: fs.rescan(q, e, n_true, ids, k)),
-                         cuda_ms(lambda: fs.rescan_reference(q, e, n_true, ids, k))),
-        "fused_scan_candidates": (cuda_ms(lambda: fs.scan_candidates(q, e, n_true, k)),
-                                  cuda_ms(lambda: fs.scan_candidates_reference(q, e, n_true, k))),
-        "topk_scan": (cuda_ms(lambda: fs.fused_topk_scan(q, e, k, n_true=n_true)),
-                      cuda_ms(lambda: _topk_chunk(q, e, 0, n_true, k))),
+        "fused_tilemax": (
+            cuda_ms(lambda: fs.tilemax(q, e, n_true)),
+            cuda_ms(lambda: fs.tilemax_reference(q, e, n_true)),
+            bound(n_true * D * item + qn * D * 4 + qn * s * 4, scan_ops, "f32")),
+        "fused_rescan": (
+            cuda_ms(lambda: fs.rescan(q, e, n_true, ids, k)),
+            cuda_ms(lambda: fs.rescan_reference(q, e, n_true, ids, k)),
+            bound(u * fs.SUB_ROWS * D * item + qn * D * 4 + ids.numel() * (8 + k * 12),
+                  2.0 * ids.numel() * fs.SUB_ROWS * D, "f32")),
+        "fused_scan_candidates": (
+            cuda_ms(lambda: fs.scan_candidates(q, e, n_true, k)),
+            cuda_ms(lambda: fs.scan_candidates_reference(q, e, n_true, k)),
+            bound(n_true * D * item + qn * D * 4 + s * qn * k * 12, scan_ops, "f32")),
+        "topk_scan": (
+            cuda_ms(lambda: fs.fused_topk_scan(q, e, k, n_true=n_true)),
+            cuda_ms(lambda: _topk_chunk(q, e, 0, n_true, k)),
+            bound(n_true * D * item, scan_ops, "f32")),
     }
-    for name, (ms, plain) in t.items():
-        log(f"time: {e.dtype} N={e.shape[0]} Q=8 k=10 {name}: kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms")
+    for name, (ms, plain, (b, by)) in t.items():
+        log(f"time: {e.dtype} N={e.shape[0]} Q={qn} k={k} {name}: kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, bound {b:.4f} ms ({by})")
+    return t
+
+
+FEW_ROWS = 2  # rows the "few" mask keeps: fewer than every k checked
+
+
+def int8_masks(n, gen):
+    import torch
+
+    half = (torch.rand(n, generator=gen, device="cuda") < 0.5).to(torch.uint8)
+    few = torch.zeros(n, dtype=torch.uint8, device="cuda")
+    few[torch.randint(0, n, (FEW_ROWS,), generator=gen, device="cuda")] = 1
+    return {"none": None, "half": half, "few": few}
+
+
+def int8_kernel_phase():
+    import torch
+
+    from semtools_tpu_torch.ops import int8_scan as i8
+    from semtools_tpu_torch.ops.fused_scan import select_subtiles
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    errs = {name: 0.0 for name in REPLACES if name.startswith("int8")}
+    times = {}
+    for n in (2_000_000, 10_000_000):
+        n_true = n - 777
+        e, dups = make_corpus(n, torch.float32, n_true, gen)
+        e8, e_scale = i8.quantize_global(e)
+        del e
+        torch.cuda.empty_cache()
+        for qn in (1, 8, 32):
+            q = unit_rows(qn, gen)
+            q[0] = e8[5].float() * e_scale
+            q8, _ = i8.quantize_global(q)
+            for label, mask in int8_masks(n, gen).items():
+                sfx = "" if mask is None else "_masked"
+                ref_max = i8.tilemax_reference(q8, e8, n_true, mask)
+                errs["int8_tilemax" + sfx] = max(errs["int8_tilemax" + sfx], equal(
+                    f"int8_tilemax{sfx}", i8.tilemax(q8, e8, n_true, mask), ref_max))
+                for k in (3, 10, 64):
+                    ids = select_subtiles(ref_max, k)
+                    v, i = i8.rescan(q8, e8, n_true, ids, k, mask)
+                    vr, ir = i8.rescan_reference(q8, e8, n_true, ids, k, mask)
+                    errs["int8_rescan" + sfx] = max(errs["int8_rescan" + sfx], equal(
+                        f"int8_rescan{sfx}", v, vr, i, ir))
+                    d, idx = i8.int8_topk_scan(q, e8, e_scale, k, n_true=n_true, mask=mask)
+                    want = sorted(dups)[: min(k, len(dups))]
+                    if mask is None and idx[0, : len(want)].tolist() != want:
+                        raise AssertionError(f"int8: planted duplicates {want} came out as "
+                                             f"{idx[0, :len(want)].tolist()}")
+                    if label == "few" and bool(torch.isfinite(d).sum(1).gt(FEW_ROWS).any()):
+                        raise AssertionError("int8 masked: more finite hits than kept rows")
+            log(f"kernels: int8 N={n} n_true={n_true} Q={qn} k=3,10,64 masks none/half/few: "
+                f"equal to the plain versions")
+        if n == 10_000_000:
+            times = time_int8_kernels(e8, e_scale, n_true, gen)
+        del e8
+        torch.cuda.empty_cache()
+    return errs, times
+
+
+def time_int8_kernels(e8, e_scale, n_true, gen):
+    from semtools_tpu_torch.ops import int8_scan as i8
+    from semtools_tpu_torch.ops.fused_scan import SUB_ROWS, _num_blocks, merge_candidates, \
+        select_subtiles
+
+    qn, k = 8, 10
+    q = unit_rows(qn, gen)
+    q8, _ = i8.quantize_global(q)
+    s = _num_blocks(n_true)
+    mask = int8_masks(e8.shape[0], gen)["half"]
+
+    def plain_topk(mask):
+        sub = i8.tilemax_reference(q8, e8, n_true, mask)
+        v, i = i8.rescan_reference(q8, e8, n_true, select_subtiles(sub, k), k, mask)
+        return merge_candidates(v.flatten(1), i.flatten(1), k)
+
+    t = {}
+    for sfx, m in (("", None), ("_masked", mask)):
+        ids = select_subtiles(i8.tilemax(q8, e8, n_true, m), k)
+        u = ids.unique().numel()
+        mask_bytes = 0 if m is None else n_true
+        t["int8_tilemax" + sfx] = (
+            cuda_ms(lambda: i8.tilemax(q8, e8, n_true, m)),
+            cuda_ms(lambda: i8.tilemax_reference(q8, e8, n_true, m)),
+            bound(n_true * D + mask_bytes + qn * D + qn * s * 4, 2.0 * qn * n_true * D, "int8"))
+        t["int8_rescan" + sfx] = (
+            cuda_ms(lambda: i8.rescan(q8, e8, n_true, ids, k, m)),
+            cuda_ms(lambda: i8.rescan_reference(q8, e8, n_true, ids, k, m)),
+            bound(u * SUB_ROWS * (D + (0 if m is None else 1)) + qn * D
+                  + ids.numel() * (8 + k * 12), 2.0 * ids.numel() * SUB_ROWS * D, "int8"))
+        t["int8_topk_scan" + sfx] = (
+            cuda_ms(lambda: i8.int8_topk_scan(q, e8, e_scale, k, n_true=n_true, mask=m)),
+            cuda_ms(lambda: plain_topk(m)),
+            bound(n_true * D + mask_bytes, 2.0 * qn * n_true * D, "int8"))
+    for name, (ms, plain, (b, by)) in t.items():
+        log(f"time: int8 N={e8.shape[0]} Q={qn} k={k}{' 50% mask' if 'masked' in name else ''} "
+            f"{name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms ({by})")
     return t
 
 
@@ -208,6 +369,9 @@ WORDS = (
     "quick brown fox lazy dog river mountain forest ocean city night morning "
     "error warn info debug trace span metric log event request reply server"
 ).split()
+QUERIES = ["database page cache latency", "quick brown fox", "vector search kernel",
+           "error log request", "river mountain forest", "shard merge select",
+           "token embed model", "night morning city"]
 
 
 def write_corpus(root: Path, n_files: int, lines_per_file: int, seed: int):
@@ -229,23 +393,27 @@ def write_corpus(root: Path, n_files: int, lines_per_file: int, seed: int):
 
 
 def run_cli(argv):
+    """(stdout, stderr, wall seconds, stage summary) of one in-process CLI
+    call; raises unless it exits 0."""
     from semtools_tpu_torch import cli
     from semtools_tpu_torch.utils import tracing
 
     tracing.reset()
-    out = io.StringIO()
+    out, err = io.StringIO(), io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli.main(argv)
     wall = time.perf_counter() - t0
     if rc != 0:
-        raise AssertionError(f"semtools search exited {rc}: {argv[:3]}...")
+        raise AssertionError(f"semtools {' '.join(argv[:3])}... exited {rc}: "
+                             f"{err.getvalue()[-2000:]}")
     stages = ", ".join(f"{name} {secs * 1e3:.1f} ms" for name, secs, _ in tracing.timings())
-    return out.getvalue(), wall, stages
+    return out.getvalue(), err.getvalue(), wall, stages
 
 
-def check_hits(results, queries, model, corpus, starts, files, k):
-    """CLI hits == plain scan of the same embeddings (tolerance as above)."""
+def check_hits(results, queries, model, corpus, starts, files, k, row_of=None):
+    """CLI hits == plain scan of the same embeddings (tolerance as above).
+    ``row_of`` maps a hit (file index, line) to its corpus row."""
     import torch
 
     from semtools_tpu_torch.ops.scan import _topk_chunk
@@ -259,11 +427,182 @@ def check_hits(results, queries, model, corpus, starts, files, k):
     return agree("search hits", got_d, ref_d, got_i, ref_i)
 
 
-def main_path_phase(dev):
+def device_busy(fn):
+    """(device ms, wall ms) of ``fn()`` under torch.profiler: the summed
+    intervals of the CUDA events (kernels and copies) it traced."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return busy, wall
+
+
+def launches_of(names, what):
+    from semtools_tpu_torch.ops import kernels
+
+    launches = kernels.launch_counts()
+    log(f"{what}: kernel launches: {launches}")
+    missing = [name for name in names if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"{what} never launched {missing}")
+    return launches
+
+
+def main_path_phase(files, small):
+    from semtools_tpu_torch.ops import kernels
+
+    qfile = Path(files[0]).parent / "queries.txt"
+    qfile.write_text("\n".join(QUERIES) + "\n")
+    kernels.reset_launch_counts()
+    runs = [
+        ("1 query, cold", ["search", QUERIES[0], *files, "--top-k", "10", "-j"]),
+        ("1 query, warm", ["search", QUERIES[0], *files, "--top-k", "10", "-j"]),
+        ("-Q 8 queries", ["search", "-Q", str(qfile), *files, "--top-k", "10", "-j"]),
+        ("2000 lines", ["search", QUERIES[1], *small, "--top-k", "10", "-j"]),
+    ]
+    outs = {}
+    for label, argv in runs:
+        out, _, wall, stages = run_cli(argv)
+        outs[label] = out
+        log(f"main: semtools search ({label}): {wall:.3f} s wall; stages: {stages}")
+    launches = launches_of(("fused_tilemax", "fused_rescan", "fused_scan_candidates"), "main")
+    return outs, str(qfile), launches
+
+
+def check_main_path(outs, model, corpus, starts, files, small_lines, small):
+    err = check_hits([json.loads(outs["1 query, warm"])["results"]], QUERIES[:1],
+                     model, corpus, starts, files, 10)
+    batch = [json.loads(x) for x in outs["-Q 8 queries"].splitlines() if x.strip()]
+    if [b["query"] for b in batch] != QUERIES:
+        raise AssertionError("-Q output does not list the 8 queries in order")
+    err = max(err, check_hits([b["results"] for b in batch], QUERIES, model, corpus,
+                              starts, files, 10))
+    err = max(err, check_hits([json.loads(outs["2000 lines"])["results"]], QUERIES[1:2],
+                              model, model.encode(small_lines), [0], small, 10))
+    log(f"main: hits equal the plain scan of the same embeddings (max |d| err {err:.3g})")
+
+
+def workspace_phase(files, qfile, model, corpus, starts):
+    """Workspace search over the 1M-line corpus under a fresh HOME."""
+    from semtools_tpu_torch.ops import kernels
+
+    subset = files[:SUBSET_FILES]
+    hits = {}
+    with tempfile.TemporaryDirectory(prefix="semtools_smoke_home_") as home:
+        old_home = os.environ.get("HOME")
+        os.environ["HOME"] = home
+        try:
+            run_cli(["workspace", "use", "smoke"])
+            kernels.reset_launch_counts()
+            steps = [
+                ("cold", ["search", QUERIES[0], *files, "-w", "smoke", "--top-k", "10", "-j"]),
+                ("warm", ["search", QUERIES[0], *files, "-w", "smoke", "--top-k", "10", "-j"]),
+                ("-Q 8", ["search", "-Q", qfile, *files, "-w", "smoke", "--top-k", "10", "-j"]),
+                (f"{SUBSET_FILES}-file subset",
+                 ["search", QUERIES[2], *subset, "-w", "smoke", "--top-k", "10", "-j"]),
+                ("f32 tier", ["search", QUERIES[0], *files, "-w", "smoke", "--top-k", "10",
+                              "-j"]),
+            ]
+            for label, argv in steps:
+                if label == "f32 tier":
+                    os.environ["SEMTOOLS_TPU_STORE_INT8"] = "0"
+                try:
+                    out, err, wall, stages = run_cli(argv)
+                finally:
+                    os.environ.pop("SEMTOOLS_TPU_STORE_INT8", None)
+                updating = "Updating workspace" in err
+                if updating != (label == "cold"):
+                    raise AssertionError(f"workspace ({label}): 'Updating workspace' "
+                                         f"{'printed' if updating else 'missing'}")
+                hits[label] = out
+                log(f"workspace: search -w ({label}): {wall:.3f} s wall; stages: {stages}")
+                if label == "warm":
+                    busy, wall_ms = device_busy(lambda: run_cli(argv))
+                    if not busy > 0:
+                        raise AssertionError("warm search -w traced no device work")
+                    log(f"workspace: warm search -w under torch.profiler: device busy "
+                        f"{busy:.3f} ms of {wall_ms:.1f} ms wall ({100 * busy / wall_ms:.2f}%)")
+
+            # a one-line edit: the rewrite re-embeds one line and reuses the rest
+            edit_file, edit_line = 7, 100
+            lines = Path(files[edit_file]).read_text().split("\n")
+            lines[edit_line] = "quick brown fox crossing the river at night"
+            Path(files[edit_file]).write_text("\n".join(lines))
+            out, err, wall, stages = run_cli(
+                ["search", QUERIES[1], *files, "-w", "smoke", "--top-k", "10", "-j"])
+            if "embedded 1 unique new lines" not in err:
+                raise AssertionError(f"workspace (edit): no reuse line in {err[-500:]!r}")
+            hits["edit"] = out
+            log(f"workspace: search -w (one-line edit): {wall:.3f} s wall; stages: {stages}; "
+                f"{[ln.strip() for ln in err.splitlines() if 'reused' in ln][0]}")
+            launches = launches_of([n for n in REPLACES if n != "fused_scan_candidates"],
+                                   "workspace")
+
+            status = json.loads(run_cli(["workspace", "status", "smoke", "-j"])[0])
+            text = run_cli(["workspace", "status", "smoke"])[0]
+            if status["total_documents"] != N_FILES or "int8-mxu-scan" not in text:
+                raise AssertionError(f"workspace status: {status} / {text!r}")
+            log(f"workspace: status: {status['total_documents']} documents, "
+                f"{status['slots_live']} live slots of {status['slots_allocated']}; "
+                f"{text.splitlines()[3]}")
+        finally:
+            if old_home is None:
+                os.environ.pop("HOME", None)
+            else:
+                os.environ["HOME"] = old_home
+
+    one = lambda label: [json.loads(hits[label])["results"]]  # noqa: E731
+    err = check_hits(one("cold"), QUERIES[:1], model, corpus, starts, files, 10)
+    err = max(err, check_hits(one("warm"), QUERIES[:1], model, corpus, starts, files, 10))
+    err = max(err, check_hits(one("f32 tier"), QUERIES[:1], model, corpus, starts, files, 10))
+    batch = [json.loads(x)["results"] for x in hits["-Q 8"].splitlines() if x.strip()]
+    err = max(err, check_hits(batch, QUERIES, model, corpus, starts, files, 10))
+    n_sub = SUBSET_FILES * LINES_PER_FILE
+    err = max(err, check_hits(one(f"{SUBSET_FILES}-file subset"), QUERIES[2:3], model,
+                              corpus[:n_sub], starts, subset, 10))
+    edited = corpus.clone()
+    edited[int(starts[edit_file]) + edit_line] = model.encode([lines[edit_line]])[0]
+    err = max(err, check_hits(one("edit"), QUERIES[1:2], model, edited, starts, files, 10))
+    log(f"workspace: hits equal the plain scan of the same embeddings (max |d| err {err:.3g})")
+    return launches
+
+
+def main() -> int:
+    if not (REPO / "semtools_tpu_torch").is_dir() or not (REPO / "cpp").is_dir():
+        print("error: run chip_smoke.py from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
     import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("error: no CUDA device: the port's kernels need one", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True,
+    )
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else ""
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}; "
+        f"{card}")
+    t_start = time.perf_counter()
 
     from semtools_tpu_torch.models.static_model import StaticModel
-    from semtools_tpu_torch.ops import kernels
+    from semtools_tpu_torch.utils.platform import resolve_device
+
+    dev = resolve_device("cuda")
+    build_phase()
+    errs, times = f32_kernel_phase()
+    errs8, times8 = int8_kernel_phase()
+    errs.update(errs8)
+    times.update(times8)
+    log(f"kernels: done at {time.perf_counter() - t_start:.1f} s")
 
     os.environ.update(SEMTOOLS_TPU_ALLOW_FALLBACK="1", SEMTOOLS_TPU_NO_FETCH="1",
                       SEMTOOLS_TPU_TIMINGS="1")
@@ -276,75 +615,33 @@ def main_path_phase(dev):
         small, small_lines = write_corpus(root / "small", 1, 2000, SEED + 1)
         log(f"main: wrote {len(lines)} lines in {len(files)} files in "
             f"{time.perf_counter() - t0:.1f} s")
-        queries = ["database page cache latency", "quick brown fox", "vector search kernel",
-                   "error log request", "river mountain forest", "shard merge select",
-                   "token embed model", "night morning city"]
-        qfile = root / "queries.txt"
-        qfile.write_text("\n".join(queries) + "\n")
-
-        kernels.reset_launch_counts()
-        runs = [
-            ("1 query, cold", ["search", queries[0], *files, "--top-k", "10", "-j"]),
-            ("1 query, warm", ["search", queries[0], *files, "--top-k", "10", "-j"]),
-            ("-Q 8 queries", ["search", "-Q", str(qfile), *files, "--top-k", "10", "-j"]),
-            ("2000 lines", ["search", queries[1], *small, "--top-k", "10", "-j"]),
-        ]
-        outs = {}
-        for label, argv in runs:
-            out, wall, stages = run_cli(argv)
-            outs[label] = out
-            log(f"main: semtools search ({label}): {wall:.3f} s wall; stages: {stages}")
-        launches = kernels.launch_counts()
-        log(f"main: kernel launches from the main path: {launches}")
-        missing = [name for name, n in launches.items() if n == 0]
-        if missing:
-            raise AssertionError(f"main path never launched {missing}")
-
+        outs, qfile, launches = main_path_phase(files, small)
         model = StaticModel.from_pretrained("minishlab/potion-multilingual-128M", device=dev)
         corpus = model.encode(lines)
         starts = np.arange(len(files) + 1) * LINES_PER_FILE
-        err = check_hits([json.loads(outs["1 query, warm"])["results"]], queries[:1],
-                         model, corpus, starts, files, 10)
-        batch = [json.loads(x) for x in outs["-Q 8 queries"].splitlines() if x.strip()]
-        if [b["query"] for b in batch] != queries:
-            raise AssertionError("-Q output does not list the 8 queries in order")
-        err = max(err, check_hits([b["results"] for b in batch], queries, model, corpus,
-                                  starts, files, 10))
-        err = max(err, check_hits([json.loads(outs["2000 lines"])["results"]], queries[1:2],
-                                  model, model.encode(small_lines), [0], small, 10))
-        log(f"main: hits equal the plain scan of the same embeddings (max |d| err {err:.3g})")
-        return launches
+        check_main_path(outs, model, corpus, starts, files, small_lines, small)
+        ws_launches = workspace_phase(files, qfile, model, corpus, starts)
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "semtools_tpu"))
+    if leaked:
+        raise AssertionError(f"the port imported {leaked}")
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    from semtools_tpu_torch.utils import tracing
 
+    tracing.reset()  # the checks' own stages: nothing to report at exit
 
-def main() -> int:
-    if not (REPO / "semtools_tpu_torch").is_dir() or not (REPO / "semtools_tpu").is_dir():
-        print("error: run chip_smoke.py from a checkout of the repository", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(REPO))
-    import torch
-
-    if not torch.cuda.is_available():
-        print("error: no CUDA device: the port's kernels need one", file=sys.stderr)
-        return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True,
-    )
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else ""
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-
-    from semtools_tpu_torch.utils.platform import resolve_device
-
-    dev = resolve_device("cuda")
-    build_phase()
-    errs, times = kernel_phase()
-    launches = main_path_phase(dev)
-    summary = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times["float32"][name][0], "plain_ms": times["float32"][name][1]}
-        for name in REPLACES
-    ]}
+    summary = {"kernels": []}
+    for name in REPLACES:
+        ms, plain, (b, by) = times[name]
+        summary["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": INT8_SOURCE if name.startswith("int8") else FUSED_SOURCE,
+            "replaces": REPLACES[name],
+            # each kernel's launches on its own path's run: the plain
+            # search for the fused kernels, workspace search for int8
+            "launches": (ws_launches if name.startswith("int8") else launches)[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
+            "bound_ms": b, "bound_by": by, "library_ms": None,
+        })
     log(card or "nvidia-smi: name and power limit unavailable")
     log(json.dumps(summary))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,9 @@
 """Tokenizers for static embedding models.
 
-A copy of ``semtools_tpu/models/tokenizer.py``: that module cannot be
-imported without jax (its package ``__init__`` pulls in the JAX model), and
-the ids must stay identical (pinned by tests/test_torch_embed.py). The
-native fast path is shared through ``semtools_tpu.utils.native``.
+A copy of ``semtools_tpu/models/tokenizer.py``: the port imports nothing of
+the JAX package, and the ids must stay identical (pinned by
+tests/test_torch_embed.py). The
+native fast path loads through ``semtools_tpu_torch.utils.native``.
 
 Two implementations share one interface (``encode_batch(texts) -> list of
 id-lists``):
@@ -26,7 +26,7 @@ import ctypes
 import re
 from typing import List, Sequence
 
-from semtools_tpu.utils.hashing import fnv1a_64
+from semtools_tpu_torch.utils.hashing import fnv1a_64
 
 _WORD_RE = re.compile(r"[\w]+|[^\w\s]", re.UNICODE)
 
@@ -41,7 +41,7 @@ def _native_encode_ascii_batch(texts: Sequence[str], vocab_size: int,
     """
     import numpy as np
 
-    from semtools_tpu.utils import native
+    from semtools_tpu_torch.utils import native
 
     lib = native.load()
     assert lib is not None
@@ -117,7 +117,7 @@ class HashTokenizer:
         numpy arrays (python fallback returns lists); downstream flatten
         code handles both.
         """
-        from semtools_tpu.utils import native
+        from semtools_tpu_torch.utils import native
 
         if not texts or not native.available():
             return self._encode_py_batch(texts)

@@ -3,7 +3,9 @@
 The kernels are compiled at first use from the sources in this package with
 ``nvcc`` for ``sm_90a`` into a plain-C shared library under ``_build/``
 (ignored by git), keyed by a hash of the sources and flags and guarded by a
-file lock so concurrent processes build once. They are bound with ctypes:
+file lock so concurrent processes build once. Each source compiles to an
+object in its own ``nvcc`` process, all started together, and one link
+makes the library. They are bound with ctypes:
 each entry point returns the ``cudaError_t`` of its launch, which
 :func:`check` turns into an exception.
 
@@ -27,19 +29,23 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
-from semtools_tpu.utils.filelock import lock_exclusive, unlock
+from semtools_tpu_torch.utils.filelock import lock_exclusive, unlock
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
-SOURCES = ("fused_scan.cu",)
+SOURCES = ("fused_scan.cu", "int8_scan.cu")
+HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-lineinfo", "-Xptxas", "-v",
 )
 
-KERNELS = ("fused_tilemax", "fused_rescan", "fused_scan_candidates")
+KERNELS = (
+    "fused_tilemax", "fused_rescan", "fused_scan_candidates",
+    "int8_tilemax", "int8_rescan", "int8_tilemax_masked", "int8_rescan_masked",
+)
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -72,16 +78,33 @@ def _nvcc() -> str:
         return str(cand)
     raise RuntimeError(
         "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the CUDA "
-        "toolkit is needed to build the fused scan kernels"
+        "toolkit is needed to build the scan kernels"
     )
 
 
 def _source_key() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((SRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]
+
+
+def _run_all(steps) -> str:
+    """Run each (command, output) at once and wait for all; the joined
+    command lines and compiler output, or RuntimeError if one failed."""
+    procs = [(cmd, out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True))
+             for cmd, out in steps]
+    log, failed = [], []
+    for cmd, out, proc in procs:
+        text = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(f"{Path(out).name}: nvcc exit {proc.returncode}\n{text[-4000:]}")
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return "\n".join(log)
 
 
 def build() -> Path:
@@ -99,17 +122,20 @@ def build() -> Path:
             if out.exists():  # another process built it while we waited
                 return out
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *(str(SRC_DIR / s) for s in SOURCES)]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
-            if proc.returncode != 0:
+            objs = [tmp.with_suffix(f".{Path(src).stem}.o") for src in SOURCES]
+            steps = [([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(SRC_DIR / src)], obj)
+                     for src, obj in zip(SOURCES, objs)]
+            try:
+                log = _run_all(steps)
+                log += _run_all([([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)], tmp)])
+            except BaseException:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed (exit {proc.returncode}):\n{log[-4000:]}"
-                )
+                raise
+            finally:
+                for obj in objs:
+                    obj.unlink(missing_ok=True)
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
             last_build_seconds = time.perf_counter() - t0
         finally:
@@ -129,6 +155,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.semtools_fused_rescan.argtypes = [p, p, i32, i32, i32, i64, p, i32, i32, p, p, p]
     lib.semtools_fused_scan_candidates.restype = i32
     lib.semtools_fused_scan_candidates.argtypes = [p, p, i32, i32, i32, i64, i32, p, p, i64, p]
+    lib.semtools_int8_tilemax.restype = i32
+    lib.semtools_int8_tilemax.argtypes = [p, p, p, i32, i32, i64, p, i64, p]
+    lib.semtools_int8_rescan.restype = i32
+    lib.semtools_int8_rescan.argtypes = [p, p, p, i32, i32, i64, p, i32, i32, p, p, p]
 
 
 def library() -> ctypes.CDLL:

@@ -25,7 +25,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from semtools_tpu.utils.text import read_file_text, split_lines
+from semtools_tpu_torch.utils.text import read_file_text, split_lines
 from semtools_tpu_torch.models.static_model import StaticModel
 from semtools_tpu_torch.ops.scan import batched_threshold_scan, cosine_distances, topk_scan
 from semtools_tpu_torch.utils.tracing import stage
@@ -208,3 +208,141 @@ def query_distances(query_embedding, embeddings: torch.Tensor) -> torch.Tensor:
     """Distances of one query against an [N, D] matrix (test/bench helper)."""
     q = torch.as_tensor(query_embedding, dtype=torch.float32).reshape(1, -1)
     return cosine_distances(q.to(embeddings.device), embeddings)[0]
+
+
+# -- workspace mode -----------------------------------------------------------
+
+
+def search_with_workspace(
+    files: Sequence[str],
+    query: str,
+    model: StaticModel,
+    config: SearchConfig,
+    workspace_name: Optional[str] = None,
+):
+    """Workspace-backed search with incremental re-embedding.
+
+    Mirrors the reference flow (src/search/mod.rs:146-211): classify files
+    as new/changed/unchanged via size+mtime+version, re-embed only
+    new/changed files, upsert, then run the filtered store scan. Returns
+    ``List[RankedLine]`` — (path, line_number, distance) only; context text
+    is re-read from the live file at print time.
+    """
+    per = search_with_workspace_batched(files, [query], model, config, workspace_name)
+    return per[0]
+
+
+def _workspace_update(files, model, config, store) -> None:
+    """The incremental re-embed + upsert flow of the workspace searches
+    (src/search/mod.rs:164-207), as the JAX package's.
+
+    LINE-LEVEL REUSE: a changed file re-embeds only the lines whose
+    content hash is not already present in its stored block (the store's
+    ``lines.h64`` sidecar). Embeddings depend only on the (case-folded)
+    text, so a hash hit copies the stored f32 row verbatim; duplicate novel
+    lines across the whole batch embed once. Reuse is disabled when the
+    stored rows predate the current embedding version or model."""
+    import sys
+
+    from semtools_tpu_torch.store.store import CURRENT_EMBEDDING_VERSION
+    from semtools_tpu_torch.utils.hashing import line_content_hash
+
+    with stage("read_files"):  # stat every file, read the new/changed ones
+        states = store.analyze_document_states(files)
+
+    lines_upserted = 0
+    lines_reused = 0
+    unique_new = 0
+    metas = []
+    dirty = [s2.info for s2 in states if s2.kind in ("changed", "new")]
+    if dirty:
+        plan = []  # (info, line hashes, old rows by hash)
+        novel: dict = {}  # hash -> text, first occurrence across the batch
+        with stage("line_hashes"):
+            for info in dirty:
+                lines = split_lines(info.content)
+                if not lines:
+                    continue  # empty docs are skipped (reference returns None)
+                texts = [ln.lower() for ln in lines] if config.ignore_case else lines
+                hashes = [line_content_hash(t) for t in texts]
+                old_rows: dict = {}
+                if info.prev_version == CURRENT_EMBEDDING_VERSION:
+                    old = store.get_doc_hash_rows(info.filename)
+                    if old is not None:
+                        oh, orows = old
+                        for j, h in enumerate(oh.tolist()):
+                            if h and h not in old_rows:
+                                old_rows[h] = orows[j]
+                for h, t in zip(hashes, texts):
+                    if h not in old_rows and h not in novel:
+                        novel[h] = t
+                plan.append((info, hashes, old_rows))
+
+        novel_rows: dict = {}
+        unique_new = len(novel)
+        if novel:
+            with stage("embed"):
+                rows = model.encode(list(novel.values()), max_length=2048).cpu().numpy()
+            novel_rows = dict(zip(novel.keys(), rows))
+
+        with stage("store_upsert"):  # assemble each document's rows, write them
+            bulk = []
+            for info, hashes, old_rows in plan:
+                mat = np.stack([
+                    old_rows[h] if h in old_rows else novel_rows[h] for h in hashes
+                ]).astype(np.float32, copy=False)
+                bulk.append((info.filename, mat, np.array(hashes, np.uint64)))
+                lines_upserted += len(hashes)
+                lines_reused += sum(1 for h in hashes if h in old_rows)
+                metas.append(info.meta)
+            store.upsert_documents_bulk(bulk)
+
+    if lines_upserted:
+        print(
+            f"Updating workspace with {lines_upserted} lines from new/changed docs...",
+            file=sys.stderr,
+        )
+        if lines_reused:
+            print(
+                f"  (reused {lines_reused} cached line embeddings; "
+                f"embedded {unique_new} unique new lines)",
+                file=sys.stderr,
+            )
+    if metas:
+        print(
+            f"Updating workspace with {len(metas)} new/changed documents...",
+            file=sys.stderr,
+        )
+        store.upsert_document_metadata(metas)
+
+    # The IVF-PQ capacity tier: a no-op while the corpus fits the device
+    # tiers; a store that needs it raises (not ported yet).
+    store.build_ann_index(verbose=True)
+
+
+def search_with_workspace_batched(
+    files: Sequence[str],
+    queries: Sequence[str],
+    model: StaticModel,
+    config: SearchConfig,
+    workspace_name: Optional[str] = None,
+):
+    """Batched :func:`search_with_workspace`: one incremental update, all
+    queries embedded in one encode, one batched store scan. Returns
+    ``List[List[RankedLine]]`` in query order."""
+    from semtools_tpu_torch.store import Store, Workspace
+
+    if not queries:
+        return []
+    qs = _encode_queries(queries, model, config).cpu().numpy()
+    ws = Workspace.open(workspace_name)
+    store = Store(ws.config.root_dir, dim=model.dim, model_name=model.name,
+                  device=model.device)
+    try:
+        _workspace_update(files, model, config, store)
+        with stage("store_scan"):
+            return store.search_line_embeddings_batched(
+                qs, list(files), config.top_k, config.max_distance
+            )
+    finally:
+        store.close()

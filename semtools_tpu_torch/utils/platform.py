@@ -26,7 +26,7 @@ def resolve_device(name: Optional[Union[str, torch.device]] = None) -> torch.dev
     dev = torch.device(name if name is not None else os.environ.get(DEVICE_ENV) or "cuda")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"device '{dev}' requested but CUDA is not available; pass "
+            f"device '{dev}' requested but CUDA is not available (no CUDA device); pass "
             f"--device cpu (or set {DEVICE_ENV}=cpu) to run on the CPU"
         )
     torch.backends.cuda.matmul.allow_tf32 = False

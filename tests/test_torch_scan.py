@@ -96,3 +96,32 @@ def test_routing_keeps_cpu_corpora_on_the_plain_path():
     assert not scan._use_fused(1 << 20, 65, 8, torch.device("cuda"))
     assert not scan._use_fused(1 << 20, 10, 33, torch.device("cuda"))
     assert not scan._use_fused(100, 10, 1, torch.device("cuda"))
+
+
+@pytest.mark.parametrize("n,qn,k,n_true,chunk", [
+    (400, 3, 10, None, None),
+    (1000, 2, 50, 990, 128),       # chunked running merge
+    (300, 1, 40, None, None),      # fewer kept rows than k: +inf filler
+])
+def test_masked_scans_match_jax(monkeypatch, n, qn, k, n_true, chunk):
+    """The ``mask=`` operand (subset serving on the slot corpus): masked
+    rows are never selected, counted or returned."""
+    q, e = _data(n + k, n, 16, qn)
+    rng = np.random.default_rng(n)
+    mask = rng.random(n) < (0.5 if k < 40 else 0.1)
+    if chunk is not None:
+        monkeypatch.setattr(scan, "SCAN_CHUNK", chunk)
+    d_ref, i_ref = jax_scan.topk_scan(q, e, k, n_true=n_true, mask=mask)
+    d, i = scan.topk_scan(torch.from_numpy(q), torch.from_numpy(e), k, n_true=n_true,
+                          mask=torch.from_numpy(mask.astype(np.uint8)))
+    fin = np.isfinite(d_ref)
+    np.testing.assert_array_equal(np.isfinite(d.numpy()), fin)
+    np.testing.assert_array_equal(i.numpy()[fin], i_ref[fin])
+    np.testing.assert_allclose(d.numpy()[fin], d_ref[fin], atol=ATOL)
+    assert mask[i.numpy()[fin]].all()
+    per_ref = jax_scan.batched_threshold_scan(q, e, 0.95, n_true=n_true, mask=mask)
+    per = scan.batched_threshold_scan(torch.from_numpy(q), torch.from_numpy(e), 0.95,
+                                      n_true=n_true, mask=torch.from_numpy(mask))
+    for (dt, it), (dj, ij) in zip(per, per_ref):
+        np.testing.assert_array_equal(it.numpy(), ij)
+        np.testing.assert_allclose(dt.numpy(), dj, atol=ATOL)

@@ -172,16 +172,10 @@ def test_queries_file_matches_jax_cli(env, capsys, monkeypatch, flags, stdin_doc
 
 def test_unported_modes_exit_1(env, capsys, monkeypatch):
     files, _ = env
-    rc, out, err = _run(torch_cli.main, ["workspace", "status"], capsys, monkeypatch)
-    assert rc == 1 and "not ported yet" in err
-    rc, out, err = _run(torch_cli.main, ["search", "q", *files, "-w", "ws", "--device", "cpu"],
-                        capsys, monkeypatch)
-    assert rc == 1 and out == "" and "not ported yet" in err
-    monkeypatch.setenv("SEMTOOLS_WORKSPACE", "ws")
-    rc, out, err = _run(torch_cli.main, ["search", "q", *files, "--device", "cpu"],
-                        capsys, monkeypatch)
-    assert rc == 1 and out == "" and "not ported yet" in err
-    monkeypatch.delenv("SEMTOOLS_WORKSPACE")
+    for argv in (["parse", *files], ["ask", "q", *files], ["daemon", "status"],
+                 ["workspace", "compact", "ws"], ["workspace", "index", "ws"]):
+        rc, out, err = _run(torch_cli.main, argv, capsys, monkeypatch)
+        assert rc == 1 and out == "" and "not ported yet" in err, argv
     rc, _, err = _run(torch_cli.main, ["search", "q", "--device", "cpu"], capsys, monkeypatch,
                       stdin="")
     assert rc == 1 and "No input provided" in err  # as the JAX CLI
@@ -217,19 +211,41 @@ def test_device_is_explicit(monkeypatch):
 
 
 def test_port_search_never_imports_jax(env, tmp_path):
+    """A plain search and a workspace search, in a child process that can
+    see only the port (``semtools_tpu_torch/`` and ``cpp/``, without the JAX
+    package or its ``_native/`` build), import nothing of jax or of the JAX
+    package."""
+    import shutil
+
     files, _ = env
+    root = tmp_path / "port_only"
+    shutil.copytree(REPO / "semtools_tpu_torch", root / "semtools_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copytree(REPO / "cpp", root / "cpp")
+    assert not (root / "semtools_tpu").exists()
     script = (
         "import sys\n"
         "from semtools_tpu_torch.cli import main\n"
         f"rc = main(['search', 'lazy dog', *{files!r}, '--device', 'cpu', '-j'])\n"
         "assert rc == 0, rc\n"
-        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert main(['workspace', 'use', 'guard']) == 0\n"
+        f"rc = main(['search', 'lazy dog', *{files!r}, '-w', 'guard', '--device', 'cpu'])\n"
+        "assert rc == 0, rc\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'semtools_tpu'))\n"
+        "assert not bad, bad\n"
+        "from semtools_tpu_torch.utils import native\n"
+        "assert native.lib_path().is_relative_to(sys.argv[1]), native.lib_path()\n"
         "print('NO_JAX_OK')\n"
     )
-    child_env = dict(os.environ, HOME=str(tmp_path / "home"), PYTHONPATH=str(REPO),
+    child_env = dict(os.environ, HOME=str(tmp_path / "home"), PYTHONPATH=str(root),
                      SEMTOOLS_TPU_NO_FETCH="1", SEMTOOLS_TPU_ALLOW_FALLBACK="1")
-    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path), env=child_env,
-                          capture_output=True, text=True, stdin=subprocess.DEVNULL, timeout=300)
+    child_env.pop("SEMTOOLS_WORKSPACE", None)
+    proc = subprocess.run([sys.executable, "-c", script, str(root)], cwd=str(tmp_path),
+                          env=child_env, capture_output=True, text=True,
+                          stdin=subprocess.DEVNULL, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip().endswith("NO_JAX_OK")
-    assert json.loads(proc.stdout.rsplit("NO_JAX_OK", 1)[0])["results"]
+    out = proc.stdout
+    assert out.strip().endswith("NO_JAX_OK")
+    assert json.loads(out[: out.index("\n}\n") + 2])["results"]
+    assert "lazy dog" not in proc.stderr and "Updating workspace" in proc.stderr
