@@ -24,7 +24,9 @@ JAX package); ties go to the lower corpus index everywhere.
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain version (``*_reference``), which the tests hold
-against the JAX package.
+against the JAX package. The launchers and plain phases take the row format
+(int8 rows here, packed int4 rows for :mod:`int4_scan`, whose kernels share
+``csrc/int_scan.cuh`` with these).
 """
 
 from __future__ import annotations
@@ -119,35 +121,38 @@ def _keep_rows(mask, n_true: int, device) -> torch.Tensor:
     return mask[:n_true] != 0
 
 
-def _int_sims(q8: torch.Tensor, e8: torch.Tensor) -> torch.Tensor:
-    """[Q, rows] integer sims as f32, exact: |sim| <= 127^2 * D < 2^24 for
-    D <= 1040, and each f32 product and partial sum is an integer below it
-    (TF32 is off: see utils.platform.resolve_device)."""
-    return q8.float() @ e8.float().T
+def _widen_int8(e8: torch.Tensor) -> torch.Tensor:
+    return e8.float()
 
 
-def tilemax_reference(q8, e8, n_true: int, mask=None) -> torch.Tensor:
+def tilemax_reference(q8, e8, n_true: int, mask=None, *, widen=_widen_int8) -> torch.Tensor:
     """[Q, ceil(n_true / SUB_ROWS)] per-sub-tile max integer sims; rows
-    >= n_true, and rows where ``mask`` is 0, read as -inf."""
+    >= n_true, and rows where ``mask`` is 0, read as -inf.
+
+    ``widen`` turns stored rows into f32 rows of the model width (int8 rows
+    as they are; the int4 scan passes its unpacking). The products are exact:
+    |sim| < 2^24 and each f32 product and partial sum is an integer below it
+    (TF32 is off: see utils.platform.resolve_device)."""
     keep = _keep_rows(mask, n_true, e8.device)
+    qf = q8.float()
     parts = []
     for start in range(0, n_true, _REF_CHUNK):
         stop = min(start + _REF_CHUNK, n_true)
-        sims = _int_sims(q8, e8[start:stop]).masked_fill(~keep[start:stop], _NEG_INF)
+        sims = (qf @ widen(e8[start:stop]).T).masked_fill(~keep[start:stop], _NEG_INF)
         pad = _num_blocks(stop - start) * SUB_ROWS - (stop - start)
         sims = F.pad(sims, (0, pad), value=_NEG_INF)
         parts.append(sims.view(q8.shape[0], -1, SUB_ROWS).amax(dim=2))
     return torch.cat(parts, dim=1)
 
 
-def rescan_reference(q8, e8, n_true: int, sub_ids, k: int, mask=None):
+def rescan_reference(q8, e8, n_true: int, sub_ids, k: int, mask=None, *, widen=_widen_int8):
     """Each query's top-k integer sims inside each of its sub-tiles
     ``sub_ids`` [Q, kt] -> ([Q, kt, k] sims, [Q, kt, k] int64 rows); rows not
     kept read as -inf."""
     rows = sub_ids[..., None] * SUB_ROWS + torch.arange(SUB_ROWS, device=e8.device)
     clamped = rows.clamp(max=n_true - 1)
     valid = (rows < n_true) & _keep_rows(mask, n_true, e8.device)[clamped]
-    blocks = e8[clamped].float()  # [Q, kt, SUB, D]
+    blocks = widen(e8[clamped])  # [Q, kt, SUB, D]
     sims = torch.einsum("qd,qtsd->qts", q8.float(), blocks)
     vals, pos = _sort_desc(sims.masked_fill(~valid, _NEG_INF), k)
     return vals, rows.gather(-1, pos)
@@ -156,28 +161,33 @@ def rescan_reference(q8, e8, n_true: int, sub_ids, k: int, mask=None):
 # -- kernel wrappers ------------------------------------------------------------
 
 
-def _on_cpu(q8, e8, mask) -> bool:
+def _on_cpu(q8, e8, mask, fmt: str = "int8") -> bool:
+    """True when every operand lies on the CPU (the plain versions run);
+    else checks what the ``fmt`` ("int8" or "int4") kernels take and raises
+    on anything else."""
+    what = f"{fmt} scan"
     tensors = [q8, e8] + ([mask] if mask is not None else [])
     if all(t.device.type == "cpu" for t in tensors):
         return True
     if any(t.device != e8.device for t in tensors) or e8.device.type != "cuda":
         raise ValueError(
-            "int8 scan operands must share one CUDA device (or all lie on the "
+            f"{what} operands must share one CUDA device (or all lie on the "
             f"CPU); got {[str(t.device) for t in tensors]}"
         )
     if q8.dtype != torch.int8 or e8.dtype != torch.int8:
-        raise TypeError(f"int8 scan takes int8 queries and corpus; got {q8.dtype}, {e8.dtype}")
+        raise TypeError(f"{what} takes int8 queries and corpus; got {q8.dtype}, {e8.dtype}")
     if mask is not None and (mask.dtype != torch.uint8 or mask.dim() != 1
                              or not mask.is_contiguous()):
         raise TypeError("the keep mask must be a contiguous 1-d uint8 tensor")
-    if q8.dim() != 2 or e8.dim() != 2 or q8.shape[1] != e8.shape[1]:
-        raise ValueError(f"shape mismatch: q8 {tuple(q8.shape)}, e8 {tuple(e8.shape)}")
+    pack = 2 if fmt == "int4" else 1  # model width per stored byte
+    if q8.dim() != 2 or e8.dim() != 2 or q8.shape[1] != pack * e8.shape[1]:
+        raise ValueError(f"shape mismatch: q8 {tuple(q8.shape)}, corpus {tuple(e8.shape)}")
     if not (1 <= q8.shape[0] <= MAX_QUERIES):
         raise ValueError(f"{q8.shape[0]} queries; the kernels take 1..{MAX_QUERIES}")
     if not (q8.is_contiguous() and e8.is_contiguous()):
-        raise ValueError("int8 scan operands must be contiguous")
+        raise ValueError(f"{what} operands must be contiguous")
     if e8.shape[1] % 16 or e8.data_ptr() % 16 or q8.data_ptr() % 16:
-        raise ValueError("int8 rows must be 16-byte aligned (D % 16 == 0)")
+        raise ValueError(f"{fmt} rows must be 16-byte aligned (D % {16 * pack} == 0)")
     return False
 
 
@@ -188,20 +198,49 @@ def _check_n_true(e8, mask, n_true: int) -> None:
         raise ValueError(f"mask has {mask.shape[0]} rows, fewer than n_true={n_true}")
 
 
+def _kernel_name(fmt: str, phase: str, mask) -> str:
+    return f"{fmt}_{phase}" + ("" if mask is None else "_masked")
+
+
+def launch_tilemax(fmt: str, q8, rows, n_true: int, mask=None) -> torch.Tensor:
+    """Phase 1 on the card: kernel ``{fmt}_tilemax[_masked]``."""
+    _check_n_true(rows, mask, n_true)
+    s = _num_blocks(n_true)
+    out = torch.empty((q8.shape[0], s), dtype=torch.float32, device=rows.device)
+    code = getattr(kernels.library(), f"semtools_{fmt}_tilemax")(
+        q8.data_ptr(), rows.data_ptr(), None if mask is None else mask.data_ptr(),
+        q8.shape[0], q8.shape[1], n_true, out.data_ptr(), s, _stream(),
+    )
+    kernels.check(code, _kernel_name(fmt, "tilemax", mask))
+    return out
+
+
+def launch_rescan(fmt: str, q8, rows, n_true: int, sub_ids, k: int, mask=None):
+    """Phase 2 on the card: kernel ``{fmt}_rescan[_masked]``."""
+    _check_n_true(rows, mask, n_true)
+    qn, kt = sub_ids.shape
+    if qn != q8.shape[0] or not (1 <= k <= SUB_ROWS):
+        raise ValueError(f"sub_ids {tuple(sub_ids.shape)} / k={k} do not fit q8 {tuple(q8.shape)}")
+    if sub_ids.device != rows.device or sub_ids.dtype != torch.int64:
+        raise TypeError("sub_ids must be int64 on the corpus device")
+    sub_ids = sub_ids.contiguous()
+    vals = torch.empty((qn, kt, k), dtype=torch.float32, device=rows.device)
+    idx = torch.empty((qn, kt, k), dtype=torch.int64, device=rows.device)
+    code = getattr(kernels.library(), f"semtools_{fmt}_rescan")(
+        q8.data_ptr(), rows.data_ptr(), None if mask is None else mask.data_ptr(),
+        qn, q8.shape[1], n_true, sub_ids.data_ptr(), kt, k, vals.data_ptr(),
+        idx.data_ptr(), _stream(),
+    )
+    kernels.check(code, _kernel_name(fmt, "rescan", mask))
+    return vals, idx
+
+
 def tilemax(q8, e8, n_true: int, mask=None) -> torch.Tensor:
     """Phase 1 (kernel ``int8_tilemax``, or ``int8_tilemax_masked`` with a
     mask): see :func:`tilemax_reference`."""
     if _on_cpu(q8, e8, mask):
         return tilemax_reference(q8, e8, n_true, mask)
-    _check_n_true(e8, mask, n_true)
-    s = _num_blocks(n_true)
-    out = torch.empty((q8.shape[0], s), dtype=torch.float32, device=e8.device)
-    code = kernels.library().semtools_int8_tilemax(
-        q8.data_ptr(), e8.data_ptr(), None if mask is None else mask.data_ptr(),
-        q8.shape[0], e8.shape[1], n_true, out.data_ptr(), s, _stream(),
-    )
-    kernels.check(code, "int8_tilemax" if mask is None else "int8_tilemax_masked")
-    return out
+    return launch_tilemax("int8", q8, e8, n_true, mask)
 
 
 def rescan(q8, e8, n_true: int, sub_ids, k: int, mask=None):
@@ -209,22 +248,7 @@ def rescan(q8, e8, n_true: int, sub_ids, k: int, mask=None):
     mask): see :func:`rescan_reference`."""
     if _on_cpu(q8, e8, mask):
         return rescan_reference(q8, e8, n_true, sub_ids, k, mask)
-    _check_n_true(e8, mask, n_true)
-    qn, kt = sub_ids.shape
-    if qn != q8.shape[0] or not (1 <= k <= SUB_ROWS):
-        raise ValueError(f"sub_ids {tuple(sub_ids.shape)} / k={k} do not fit q8 {tuple(q8.shape)}")
-    if sub_ids.device != e8.device or sub_ids.dtype != torch.int64:
-        raise TypeError("sub_ids must be int64 on the corpus device")
-    sub_ids = sub_ids.contiguous()
-    vals = torch.empty((qn, kt, k), dtype=torch.float32, device=e8.device)
-    idx = torch.empty((qn, kt, k), dtype=torch.int64, device=e8.device)
-    code = kernels.library().semtools_int8_rescan(
-        q8.data_ptr(), e8.data_ptr(), None if mask is None else mask.data_ptr(),
-        qn, e8.shape[1], n_true, sub_ids.data_ptr(), kt, k, vals.data_ptr(),
-        idx.data_ptr(), _stream(),
-    )
-    kernels.check(code, "int8_rescan" if mask is None else "int8_rescan_masked")
-    return vals, idx
+    return launch_rescan("int8", q8, e8, n_true, sub_ids, k, mask)
 
 
 def int8_two_phase(q8, e8, n_true: int, k: int, mask=None):

@@ -11,16 +11,22 @@ outrank real rows whose similarity is negative. Callers oversample by
 back to the compact gather path in the rare case the slack was not enough;
 results stay exact in all cases.
 
-Serving kinds ported: "f32" (exact scan) and "int8" (one global scale,
-served with an exact f32 re-rank). The corpus is ``[capacity, D]`` with no
-tile padding: the port's kernels read only ``n_true = capacity`` rows.
+Serving kinds ported: "f32" (exact scan), "int8" (one global scale,
+served with an exact f32 re-rank) and "int4" (one global scale, split-half
+packed ``[capacity, D/2]``, served through the deep-candidate extraction and
+the same re-rank). Zero rows of the int4 corpus, freed slots included, hold
+``PACKED_ZERO_BYTE`` (0x08), the packing of the zero vector, as in the JAX
+package. The corpus has no tile padding: the port's kernels read only
+``n_true = capacity`` rows.
 
 :func:`get` returns the cached corpus at the store's current generation,
 else builds a new one (streamed from the mmap in 1M-row chunks, one global
-amax pass for int8, each chunk quantized on the host and copied into the
-device tensor). Patching a cached corpus in place after a mutation (the JAX
-package's ``_patch``) waits for the daemon, the one long-lived process that
-keeps a corpus across mutations (ROADMAP).
+amax pass for int8 and int4, each chunk quantized, and packed for int4, on
+the host and copied into the device tensor). Quantizing and packing on the
+device (the JAX package's ``_device_build_corpus``) is not ported yet.
+Patching a cached corpus in place after a mutation (the JAX package's
+``_patch``) waits for the daemon, the one long-lived process that keeps a
+corpus across mutations (ROADMAP).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from semtools_tpu_torch.ops.int4_scan import PACKED_ZERO_BYTE, pack_int4
 from semtools_tpu_torch.store import device_cache
 from semtools_tpu_torch.utils.tracing import stage
 
@@ -48,10 +55,10 @@ def uploaded_bytes() -> int:
 
 @dataclass
 class SlotCorpus:
-    kind: str  # "f32" | "int8"
+    kind: str  # "f32" | "int8" | "int4"
     generation: int
     capacity: int  # slot count = rows of ``corpus`` = the scans' n_true
-    corpus: torch.Tensor  # [capacity, D] f32 or int8 on the store's device
+    corpus: torch.Tensor  # [capacity, D] f32 or int8, or [capacity, D/2] packed int4
     scale: Optional[float]
     layout: Dict[str, Tuple[int, int, int]]  # path -> (slot_start, n, vec_rev)
     # Max over rows of sum(|int8 value|): turns the int8 kernel's query
@@ -87,6 +94,10 @@ def _transform(rows: np.ndarray, kind: str, scale) -> np.ndarray:
         if not scale:
             return np.zeros(rows.shape, np.int8)
         return np.clip(np.rint(rows / scale), -127, 127).astype(np.int8)
+    if kind == "int4":
+        if not scale:
+            return np.full((rows.shape[0], rows.shape[1] // 2), PACKED_ZERO_BYTE, np.int8)
+        return pack_int4(np.clip(np.rint(rows / scale), -7, 7).astype(np.int8))
     return rows
 
 
@@ -125,16 +136,17 @@ def _build(store, kind: str, device: torch.device, gen: int) -> Optional[SlotCor
 
     scale = None
     max_l1 = 0.0
-    if kind == "int8":
+    if kind in ("int8", "int4"):
         # Global amax over occupied rows; zero slots never contribute.
         amax = 0.0
         for _, block in _occupied_slot_chunks(mm, ranges, _BUILD_CHUNK_ROWS):
             if block.size:
                 amax = max(amax, float(np.max(np.abs(block))))
-        scale = amax / 127.0
+        scale = amax / (127.0 if kind == "int8" else 7.0)
 
     dtype = torch.float32 if kind == "f32" else torch.int8
-    corpus = torch.empty((cap, store.dim), dtype=dtype, device=device)
+    width = store.dim // 2 if kind == "int4" else store.dim
+    corpus = torch.empty((cap, width), dtype=dtype, device=device)
     for c0, block in _occupied_slot_chunks(mm, ranges, _BUILD_CHUNK_ROWS):
         q = _transform(block, kind, scale)
         if kind == "int8" and q.size:

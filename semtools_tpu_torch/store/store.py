@@ -17,15 +17,18 @@ lazily: ``cuda`` unless ``cpu`` is asked for; ``workspace status`` never
 touches it). Whole-store and path-subset queries are served from the
 store's slot-space device corpus (``patch_cache``) on the tier the JAX
 package's policy names (``serving_tier``): the exact f32 scan (fused
-kernels ``csrc/fused_scan.cu``) or the int8 tier (two-phase int8 kernels
+kernels ``csrc/fused_scan.cu``); the int8 tier (two-phase int8 kernels
 ``csrc/int8_scan.cu``, plain and masked) with an exact f32 re-rank in numpy
-on the host, grown until the margin certificate proves the top-k complete.
+on the host, grown until the margin certificate proves the top-k complete;
+or the int4 capacity rung (the deep-candidate sweep of
+``csrc/int4_scan.cu``, plain and masked: every row within a noise margin of
+each query's quantized ``k_cut``-th best) with the same re-rank.
 Other path subsets gather their rows and scan them on the device (the
 compact path). ``SEMTOOLS_TPU_SCAN=host`` scores on the host from the mmap;
 ``auto`` means the device (the JAX package's link-probe placement is not
 ported). When the policy names a tier the port does not have yet (IVF-PQ,
-int4, reduced-dim, sharded), the store raises :class:`NotPortedError`
-rather than serve another tier in its place.
+reduced-dim, sharded), the store raises :class:`NotPortedError` rather than
+serve another tier in its place.
 """
 
 from __future__ import annotations
@@ -84,9 +87,9 @@ def _int4_tier_enabled(n_rows: int) -> bool:
     """Half-byte packed serving tier SIZE policy (SEMTOOLS_TPU_STORE_INT4
     overrides: 1=always, 0=never; SEMTOOLS_TPU_INT4_MIN_ROWS=N opts into
     automatic size-based selection above N rows). The JAX package's
-    policy: int4 is a capacity rung that engages when int8 does not fit the
-    device budget (see Store._device_kind). The port does not serve it yet;
-    the policy is kept so both packages name the same tier.
+    policy, kept as it is so both packages pick the same tier: int4 is a
+    capacity rung that engages when int8 does not fit the device budget (see
+    Store._device_kind).
     """
     v = os.environ.get("SEMTOOLS_TPU_STORE_INT4")
     if v == "1":
@@ -812,17 +815,15 @@ class Store:
         return "f32", None
 
     def _served_kind(self, n_rows: int) -> str:
-        """'f32' or 'int8', the whole-store device tier the policy picks;
-        raises :class:`NotPortedError` for the tiers the port has not yet
-        (IVF-PQ, sharded, reduced-dim int8, int4)."""
+        """'f32', 'int8' or 'int4', the whole-store device tier the policy
+        picks; raises :class:`NotPortedError` for the tiers the port has not
+        yet (IVF-PQ, sharded, reduced-dim int8)."""
         if self._use_ann_tier(n_rows):
             raise NotPortedError("the IVF-PQ serving tier")
         _sharded_enabled(n_rows)
         kind, rd = self._device_kind(n_rows)
         if rd:
             raise NotPortedError(f"the reduced-{rd}d int8 serving tier")
-        if kind == "int4":
-            raise NotPortedError("the int4 serving tier")
         return kind
 
     def serving_tier(self, n_rows: Optional[int] = None) -> str:
@@ -832,7 +833,8 @@ class Store:
             n_rows = self.count_line_embeddings()
         if os.environ.get("SEMTOOLS_TPU_SCAN", "").lower() == "host":
             return "host-mmap-scan"
-        return "int8-mxu-scan" if self._served_kind(n_rows) == "int8" else "exact-mxu-scan"
+        kind = self._served_kind(n_rows)
+        return "exact-mxu-scan" if kind == "f32" else f"{kind}-mxu-scan"
 
     def build_ann_index(self, force: bool = False, verbose: bool = False):
         """The IVF-PQ capacity tier: nothing to do while the corpus fits the
@@ -1240,7 +1242,7 @@ class Store:
             return None
         _sharded_enabled(total_rows)
         kind, rd = self._device_kind(total_rows)
-        warm = not rd and kind in ("f32", "int8") and patch_cache.is_warm(
+        warm = not rd and kind in ("f32", "int8", "int4") and patch_cache.is_warm(
             self, kind, self.device
         )
         if mode not in ("1", "on") and not warm:
@@ -1306,6 +1308,7 @@ class Store:
         ``n_rows`` is always the WHOLE store's live row count (it picks
         the tier the cached corpus was built as). With ``subset_ranges``
         the scan applies the subset's slot keep mask."""
+        from semtools_tpu_torch.ops.int4_scan import int4_deep_candidates
         from semtools_tpu_torch.ops.int8_scan import int8_topk_scan, quantize_global
         from semtools_tpu_torch.store import patch_cache
 
@@ -1358,6 +1361,21 @@ class Store:
                     return None  # zero-slot slack exhausted: exact fallback
                 out.append(rows[:top_k])
             return out
+
+        if kind == "int4":
+            # The packed tier serves through the margin-bounded deep
+            # extraction: one corpus sweep yields every row within a noise
+            # margin of each query's exact quantized k_cut-th best, sized to
+            # the corpus's local density, so no growth loop is needed. Freed
+            # slots (0x08 rows) score true sim 0 and enter the pool only below
+            # the margin; the re-rank drops unowned slots and falls back to the
+            # exact path if fewer than `need` real rows remain.
+            ids = int4_deep_candidates(
+                q_dev, sc.corpus, n_true=sc.capacity, mask=mask, k_cut=max(need, 10),
+            )
+            return self._rerank_candidates(
+                ids.cpu().numpy(), qs, owners, paths, need, top_k, max_distance,
+            )
 
         oversample = self._int8_oversample(top_k, sel_rows)
 

@@ -211,10 +211,10 @@ def test_device_is_explicit(monkeypatch):
 
 
 def test_port_search_never_imports_jax(env, tmp_path):
-    """A plain search and a workspace search, in a child process that can
-    see only the port (``semtools_tpu_torch/`` and ``cpp/``, without the JAX
-    package or its ``_native/`` build), import nothing of jax or of the JAX
-    package."""
+    """A plain search and workspace searches (int8 and int4 tiers), in a
+    child process that can see only the port (``semtools_tpu_torch/`` and
+    ``cpp/``, without the JAX package or its ``_native/`` build), import
+    nothing of jax or of the JAX package."""
     import shutil
 
     files, _ = env
@@ -231,6 +231,11 @@ def test_port_search_never_imports_jax(env, tmp_path):
         "assert main(['workspace', 'use', 'guard']) == 0\n"
         f"rc = main(['search', 'lazy dog', *{files!r}, '-w', 'guard', '--device', 'cpu'])\n"
         "assert rc == 0, rc\n"
+        "import os\n"
+        "os.environ['SEMTOOLS_TPU_STORE_INT4'] = '1'\n"
+        f"rc = main(['search', 'lazy dog', *{files!r}, '-w', 'guard', '--device', 'cpu'])\n"
+        "assert rc == 0, rc\n"
+        "assert main(['workspace', 'status', 'guard']) == 0\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'semtools_tpu'))\n"
         "assert not bad, bad\n"
@@ -249,3 +254,4 @@ def test_port_search_never_imports_jax(env, tmp_path):
     assert out.strip().endswith("NO_JAX_OK")
     assert json.loads(out[: out.index("\n}\n") + 2])["results"]
     assert "lazy dog" not in proc.stderr and "Updating workspace" in proc.stderr
+    assert "int4-mxu-scan" in out  # the second workspace search served the int4 tier

@@ -4,14 +4,15 @@ package's (semtools_tpu.store), on the same numpy embeddings.
 Both stores receive the same documents through ``upsert_documents_bulk``
 (and the same metadata, deletes and re-inserts) in separate directories,
 then answer the same queries on every serving route: the whole store on the
-f32 and int8 tiers, path subsets on the masked slot corpus and on the
+f32, int8 and int4 tiers, path subsets on the masked slot corpus and on the
 compact gather, threshold mode, ``top_k`` wider than a subset, a fragmented
 store (freed zero slots) and ``SEMTOOLS_TPU_SCAN=host``. The
-``(path, line_number)`` lists must be equal and in the same order. Int8-tier
-distances are bit-equal (both re-rank the same candidates in numpy); f32
-distances agree within 1e-6 (matmul summation order). The on-disk files are
-byte-equal, each package serves the other's workspace, and both name the
-same serving tier; a tier the port does not have raises "not ported yet".
+``(path, line_number)`` lists must be equal and in the same order. Int8- and
+int4-tier distances are bit-equal (both re-rank the same candidates in
+numpy); f32 distances agree within 1e-6 (matmul summation order). The
+on-disk files are byte-equal, each package serves the other's workspace, and
+both name the same serving tier; a tier the port does not have raises "not
+ported yet".
 
 Both sides pin ``SEMTOOLS_TPU_SCAN=device`` (the JAX package's link probe
 would otherwise pick the host path on the CPU) and the JAX side
@@ -122,6 +123,12 @@ def _assert_same(want, got, exact: bool):
             np.testing.assert_allclose(g, w, rtol=0, atol=F32_ATOL)
 
 
+def _use_tier(monkeypatch, tier):
+    """Pin the whole-store tier on both sides (int4 outranks int8)."""
+    monkeypatch.setenv("SEMTOOLS_TPU_STORE_INT8", "1" if tier == "int8" else "0")
+    monkeypatch.setenv("SEMTOOLS_TPU_STORE_INT4", "1" if tier == "int4" else "0")
+
+
 def _search(j, t, q, subset, top_k, max_distance=None):
     return (j.search_line_embeddings_batched(q, subset, top_k, max_distance),
             t.search_line_embeddings_batched(q, subset, top_k, max_distance))
@@ -135,38 +142,39 @@ SUBSETS = {
 }
 
 
-@pytest.mark.parametrize("tier", ["f32", "int8"])
+@pytest.mark.parametrize("tier", ["f32", "int8", "int4"])
 @pytest.mark.parametrize("subset", list(SUBSETS))
 @pytest.mark.parametrize("subset_device", ["1", "0"])
 @pytest.mark.parametrize("top_k,max_distance", [(5, None), (20, None), (10, 0.9)])
 def test_search_matches_jax(stores, monkeypatch, tier, subset, subset_device, top_k,
                             max_distance):
     j, t, docs = stores
-    monkeypatch.setenv("SEMTOOLS_TPU_STORE_INT8", "1" if tier == "int8" else "0")
+    _use_tier(monkeypatch, tier)
     monkeypatch.setenv("SEMTOOLS_TPU_SUBSET_DEVICE", subset_device)
     want, got = _search(j, t, _queries(docs), SUBSETS[subset], top_k, max_distance)
-    # the int8 tier serves whole stores and masked subsets through the
+    # the quantized tiers serve whole stores and masked subsets through the
     # numpy re-rank; the compact gather is an f32 scan
-    exact = tier == "int8" and (subset == "all" or subset_device == "1")
+    exact = tier != "f32" and (subset == "all" or subset_device == "1")
     _assert_same(want, got, exact)
+    assert patch_cache.is_warm(t, tier, t.device) == (subset == "all" or subset_device == "1")
     if subset == "all" and max_distance is None:
         assert [rows[0].distance for rows in got][0] == pytest.approx(0.0, abs=1e-6)
 
 
-@pytest.mark.parametrize("tier", ["f32", "int8"])
+@pytest.mark.parametrize("tier", ["f32", "int8", "int4"])
 @pytest.mark.parametrize("subset", ["all", "two"])
 def test_fragmented_store_matches_jax(stores, monkeypatch, tier, subset):
     j, t, docs = stores
     _fragment(j)
     _fragment(t)
-    monkeypatch.setenv("SEMTOOLS_TPU_STORE_INT8", "1" if tier == "int8" else "0")
+    _use_tier(monkeypatch, tier)
     monkeypatch.setenv("SEMTOOLS_TPU_SUBSET_DEVICE", "1")
     live, cap = t.fragmentation()
     assert (live, cap) == j.fragmentation() and cap > live
     paths = ["/a.txt", "/c.txt", "/d.txt", "/e.txt"] if subset == "all" else SUBSETS[subset]
     for top_k, max_distance in [(8, None), (40, None), (30, 1.0)]:
         want, got = _search(j, t, _queries(docs, qn=4, seed=3), paths, top_k, max_distance)
-        _assert_same(want, got, exact=tier == "int8")
+        _assert_same(want, got, exact=tier != "f32")
 
 
 def test_host_scan_matches_jax(stores, monkeypatch):
@@ -214,11 +222,11 @@ def test_disk_format_is_byte_equal(stores, tmp_path):
         assert (tmp_path / "jax" / name).read_bytes() == (tmp_path / "torch" / name).read_bytes()
 
 
-@pytest.mark.parametrize("tier", ["f32", "int8"])
+@pytest.mark.parametrize("tier", ["f32", "int8", "int4"])
 def test_cross_reads(stores, tmp_path, monkeypatch, tier):
     """Each package serves the other's workspace with the other's results."""
     j, t, docs = stores
-    monkeypatch.setenv("SEMTOOLS_TPU_STORE_INT8", "1" if tier == "int8" else "0")
+    _use_tier(monkeypatch, tier)
     monkeypatch.setenv("SEMTOOLS_TPU_SUBSET_DEVICE", "1")
     q = _queries(docs)
     t_on_jax = Store(str(tmp_path / "jax"), dim=DIM, model_name="m", device="cpu")
@@ -228,10 +236,10 @@ def test_cross_reads(stores, tmp_path, monkeypatch, tier):
             paths = SUBSETS[subset]
             _assert_same(j.search_line_embeddings_batched(q, paths, 6),
                          t_on_jax.search_line_embeddings_batched(q, paths, 6),
-                         exact=tier == "int8")
+                         exact=tier != "f32")
             _assert_same(t.search_line_embeddings_batched(q, paths, 6),
                          j_on_torch.search_line_embeddings_batched(q, paths, 6),
-                         exact=tier == "int8")
+                         exact=tier != "f32")
         assert t_on_jax.get_existing_docs(["/a.txt"]) == t.get_existing_docs(["/a.txt"])
     finally:
         t_on_jax.close()
@@ -245,6 +253,9 @@ def test_cross_reads(stores, tmp_path, monkeypatch, tier):
     ({"SEMTOOLS_TPU_SCAN": "host"}, "host-mmap-scan"),
     # f32 over the device budget, int8 within it
     ({"SEMTOOLS_TPU_DEVICE_CACHE_BYTES": str(997 * DIM * 2)}, "int8-mxu-scan"),
+    ({"SEMTOOLS_TPU_STORE_INT4": "1"}, "int4-mxu-scan"),
+    # int8 (DIM B/row) over the device budget, int4 (DIM/2 B/row) within it
+    ({"SEMTOOLS_TPU_DEVICE_CACHE_BYTES": str(997 * DIM * 3 // 4)}, "int4-mxu-scan"),
 ])
 def test_serving_tier_names_match(stores, monkeypatch, env, tier):
     j, t, _ = stores
@@ -256,7 +267,6 @@ def test_serving_tier_names_match(stores, monkeypatch, env, tier):
 
 
 @pytest.mark.parametrize("env,what", [
-    ({"SEMTOOLS_TPU_STORE_INT4": "1"}, "int4"),
     ({"SEMTOOLS_TPU_DEVICE_CACHE_BYTES": str(997 * 20), "SEMTOOLS_TPU_STORE_INT4": "0",
       "SEMTOOLS_TPU_REDUCED_DIM": "8"}, "reduced-8d"),
     ({"SEMTOOLS_TPU_FORCE_ANN": "1"}, "IVF-PQ"),
@@ -266,8 +276,8 @@ def test_unported_tiers_raise(stores, monkeypatch, env, what):
     j, t, docs = stores
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    if what in ("int4", "reduced-8d"):
-        assert what.split("-")[0] in j.serving_tier()  # the JAX package serves it
+    if what == "reduced-8d":
+        assert "reduced8d" in j.serving_tier()  # the JAX package serves it
     with pytest.raises(NotPortedError, match=f"{what}.*not ported yet"):
         t.serving_tier()
     with pytest.raises(NotPortedError, match="not ported yet"):

@@ -158,6 +158,20 @@ def test_workspace_queries_file_matches_jax_cli(env, capsys, monkeypatch, flags)
     _assert_search_same(oj, ot, "-j" in flags)
 
 
+@pytest.mark.parametrize("flags", [["--top-k", "5"], ["--top-k", "4", "-j"], ["-m", "0.8", "-j"]])
+def test_int4_workspace_search_matches_jax_cli(env, capsys, monkeypatch, flags):
+    """The int4 tier (``SEMTOOLS_TPU_STORE_INT4=1``) serves both CLIs the
+    same hits, and both name it in ``workspace status``."""
+    homes, files, _ = env
+    monkeypatch.setenv("SEMTOOLS_WORKSPACE", "ws")
+    monkeypatch.setenv("SEMTOOLS_TPU_STORE_INT4", "1")
+    argv = ["search", "DATABASES pages disk", *files, *flags]
+    (oj, _), (ot, _) = _both(argv, homes, capsys, monkeypatch)
+    _assert_search_same(oj, ot, "-j" in flags)
+    (oj, _), (ot, _) = _both(["workspace", "status", "ws"], homes, capsys, monkeypatch)
+    assert ot == oj and "Index: Yes (int4-mxu-scan)" in ot
+
+
 def test_one_line_edit_reuses_cached_lines(env, capsys, monkeypatch):
     homes, files, _ = env
     monkeypatch.setenv("SEMTOOLS_WORKSPACE", "ws")
