@@ -12,18 +12,24 @@ exits non-zero without them. Phases:
 2. f32 kernels: each fused kernel against its plain PyTorch version on the
    card, at N = 2M and 10M rows x D = 256 f32 (plus bf16 at 2M),
    Q in {1, 8, 32}, k in {3, 10, 64}, ragged n_true, planted duplicate
-   rows across sub-tile boundaries. Sims agree rank by rank within 1e-5;
-   indices must be equal except at ranks where the plain version's
-   neighbouring sims lie within 1e-5 (near-ties of summation order);
-   planted duplicates resolve to the lower index. CUDA-event times of
-   kernel and plain path at N = 2M, Q = 8, k = 10;
+   rows across sub-tile boundaries (so query 0's sub-tile maxima tie across
+   sub-tiles). Sims agree rank by rank within 1e-5; indices must be equal
+   except at ranks where the plain version's neighbouring sims lie within
+   1e-5 (near-ties of summation order); planted duplicates resolve to the
+   lower index. The sub-tile selection (``select_subtiles``, every format's)
+   must equal the plain stable sort exactly. Times at N = 2M, Q = 8, k = 10:
+   CUDA events around 20 calls (what a caller pays, host included), the
+   device time of the same calls under torch.profiler, the plain path's
+   events time and, for the selection, one ``torch.topk``; one two-phase
+   call under the profiler must show phase 1 and then exactly the
+   selection and the rescan-and-merge kernels;
 3. int8 kernels: each int8 kernel (plain and masked) against its plain
    version on int8 corpora of N = 2M and 10M rows x 256 (``quantize_global``
    of seeded unit rows; ragged n_true; planted duplicates), Q in {1, 8, 32},
    k in {3, 10, 64}, with no mask, a random 50% mask and a mask keeping
    fewer than k rows. Integer arithmetic: sims equal rank by rank, indices
-   equal wherever finite, duplicates lowest first. CUDA-event times at
-   N = 10M, Q = 8, k = 10;
+   equal (the rescan-and-merge's -inf filler rows too), duplicates lowest
+   first. Times as in phase 2 at N = 10M, Q = 8, k = 10;
 4. int4 kernels: each int4 kernel (the deep-candidate sweep and the two
    phases, plain and masked) against its plain version on packed corpora of
    N = 2M and 10M rows x 256 (random bytes made on the card from a seeded
@@ -36,7 +42,7 @@ exits non-zero without them. Phases:
    and equal the rows at or above their lowest sim when under it. Then
    ``int4_topk_scan`` through its public entry point (counts reset just
    before: the two-phase kernels' own path) against the plain phases, and
-   CUDA-event times at N = 10M, Q = 8, k = 10;
+   times as in phase 2 at N = 10M, Q = 8, k = 10;
 5. main path: ``semtools search`` through ``semtools_tpu_torch.cli.main``
    over ~1M lines of seeded synthetic text in 500 files (the corpus sits on
    the card as 1M x 256 f32) with the built-in 65,536 x 256 embedder, one
@@ -58,9 +64,11 @@ exits non-zero without them. Phases:
 Phases 5 and 6 check their hits against a plain exact scan of the same
 embeddings on the card (tolerance as in phase 2), and every kernel of each
 path must show launches in that path's run (counts reset just before it).
-The last line of stdout is ``{"ok": true, "device": {...}}``; the lines
-before it are the card's name and power limit and the per-kernel JSON
-summary.
+The launch floor (an empty kernel through the kernels' ctypes path) is
+timed after the build. The last line of stdout is ``{"ok": true,
+"device": {...}}``; the lines before it are the card's name and power limit
+and the per-kernel JSON summary (with ``device_ms`` and ``floor_ms`` beside
+the contract's keys).
 """
 
 from __future__ import annotations
@@ -85,23 +93,27 @@ D = 256
 FUSED_SOURCE = "semtools_tpu_torch/csrc/fused_scan.cu"
 INT8_SOURCE = "semtools_tpu_torch/csrc/int8_scan.cu"
 INT4_SOURCE = "semtools_tpu_torch/csrc/int4_scan.cu"
+SELECT_SOURCE = "semtools_tpu_torch/csrc/select.cu"
 REPLACES = {
     "fused_tilemax": "semtools_tpu/ops/pallas_scan.py:269",
-    "fused_rescan": "semtools_tpu/ops/pallas_scan.py:293",
+    "fused_rescan_topk": "semtools_tpu/ops/pallas_scan.py:293",
     "fused_scan_candidates": "semtools_tpu/ops/pallas_scan.py:152",
+    "select_subtiles": "semtools_tpu/ops/pallas_scan.py:362",
     "int8_tilemax": "semtools_tpu/ops/int8_scan.py:118",
-    "int8_rescan": "semtools_tpu/ops/int8_scan.py:133",
+    "int8_rescan_topk": "semtools_tpu/ops/int8_scan.py:133",
     "int8_tilemax_masked": "semtools_tpu/ops/int8_scan.py:217",
-    "int8_rescan_masked": "semtools_tpu/ops/int8_scan.py:236",
+    "int8_rescan_topk_masked": "semtools_tpu/ops/int8_scan.py:236",
     "int4_sims_max": "semtools_tpu/ops/int4_scan.py:317",
     "int4_sims_max_masked": "semtools_tpu/ops/int4_scan.py:334",
     "int4_tilemax": "semtools_tpu/ops/int4_scan.py:220",
-    "int4_rescan": "semtools_tpu/ops/int4_scan.py:232",
+    "int4_rescan_topk": "semtools_tpu/ops/int4_scan.py:232",
     "int4_tilemax_masked": "semtools_tpu/ops/int4_scan.py:608",
-    "int4_rescan_masked": "semtools_tpu/ops/int4_scan.py:624",
+    "int4_rescan_topk_masked": "semtools_tpu/ops/int4_scan.py:624",
 }
-SOURCES = {"fused": FUSED_SOURCE, "int8": INT8_SOURCE, "int4": INT4_SOURCE}
-K5 = ("int4_tilemax", "int4_rescan", "int4_tilemax_masked", "int4_rescan_masked")
+SOURCES = {"fused": FUSED_SOURCE, "int8": INT8_SOURCE, "int4": INT4_SOURCE,
+           "select": SELECT_SOURCE}
+K5 = ("int4_tilemax", "select_subtiles", "int4_rescan_topk", "int4_tilemax_masked",
+      "int4_rescan_topk_masked")
 K6 = ("int4_sims_max", "int4_sims_max_masked")
 INT4_BUDGET = 209_715_200  # bytes: under the int8 corpus of 1M x 256, over the int4 one
 E_SCALE = 1.0 / 7.0  # the packed corpora of phase 4 are random bytes: any scale serves
@@ -164,6 +176,8 @@ def equal(what, vals, ref_vals, idx=None, ref_idx=None) -> float:
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
+    """CUDA events around ``reps`` back-to-back calls, per call: for a kernel
+    of a few microseconds this is the host's issue rate, not device time."""
     import torch
 
     fn()
@@ -175,6 +189,130 @@ def cuda_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, name=None, reps: int = 20) -> float:
+    """Device time of ``fn`` under torch.profiler over ``reps`` calls: with
+    ``name``, the mean of the traced launches of the kernels whose name holds
+    it (one a call); without, all traced device work summed, per call. Where
+    the profiler traces no device work, events around the replay of a CUDA
+    graph of the same calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and (name is None or name in e.name)]
+    if events:
+        return sum(e.time_range.elapsed_us() for e in events) / 1e3 / (
+            reps if name is None else len(events))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, reps=1) / reps
+
+
+def launch_floor():
+    """(events ms, device ms) of one empty kernel launched through the
+    kernels' ctypes path: what any launch of a few microseconds costs."""
+    import torch
+
+    from semtools_tpu_torch.ops import kernels
+
+    lib = kernels.library()
+
+    def empty():
+        code = lib.semtools_empty_launch(torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"empty launch failed: CUDA error {code}")
+
+    floor = (cuda_ms(empty), device_ms(empty, "empty_kernel"))
+    log(f"time: launch floor (empty kernel through ctypes): {floor[0]:.4f} ms events, "
+        f"{floor[1]:.4f} ms device")
+    return floor
+
+
+def timing(fn, plain, bnd, kernel=None, plain_reps: int = 20, library=None) -> dict:
+    """One kernel's (or path's) numbers: events and device time, its plain
+    version's events time, its bound and, where one exists, the events
+    time of the one PyTorch call that computes the same function."""
+    return {"ms": cuda_ms(fn), "device_ms": device_ms(fn, kernel),
+            "plain_ms": cuda_ms(plain, reps=plain_reps), "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": None if library is None else cuda_ms(library)}
+
+
+def log_times(prefix: str, t: dict) -> None:
+    for name, r in t.items():
+        lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
+        log(f"time: {prefix} {name}{' 50% mask' if 'masked' in name else ''}: kernel "
+            f"{r['ms']:.4f} ms events / {r['device_ms']:.4f} ms device, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}){lib}")
+
+
+def select_timing(sub_max, k: int) -> dict:
+    """The selection kernel's numbers on phase 1's [Q, S] maxima; its
+    library yardstick is one torch.topk (whose tie order is not pinned; the
+    port never calls it)."""
+    import torch
+
+    from semtools_tpu_torch.ops import fused_scan as fs
+
+    qn, s = sub_max.shape
+    r = timing(lambda: fs.top_subtiles(sub_max, k), lambda: fs.select_subtiles(sub_max, k),
+               bound(qn * s * 4 + qn * k * 8, float(qn * s), "f32"), "select_kernel",
+               library=lambda: torch.topk(sub_max, k))
+    log(f"time: select_subtiles Q={qn} S={s} k={k}: {r['ms']:.4f} ms events / "
+        f"{r['device_ms']:.4f} ms device, torch.topk {r['library_ms']:.4f} ms, plain (stable "
+        f"sort) {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
+    # blocks per query: one per SELECT_CHUNK maxima, the last one merging
+    chosen, sweep = fs.SELECT_CHUNK, []
+    try:
+        for chunk in (1024, 2048, 4096, 8192):
+            fs.SELECT_CHUNK = chunk
+            sweep.append(f"{chunk}: {device_ms(lambda: fs.top_subtiles(sub_max, k), 'select'):.4f}")
+    finally:
+        fs.SELECT_CHUNK = chosen
+    log(f"time: select_subtiles Q={qn} S={s} k={k} device ms by maxima per block "
+        f"({-(-s // chosen)} blocks per query at {chosen}): " + ", ".join(sweep))
+    return r
+
+
+def two_phase_ops(what: str, fn, phase1: str) -> None:
+    """One call of a two-phase scan under torch.profiler: after phase 1 its
+    device work is the selection and the rescan-and-merge kernels, and
+    nothing else (no torch op, no copy) until the [Q, k] answer they write;
+    what a caller does with the answer (distances from sims) comes after."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    names = [e.name for e in ops]
+    first = next((i for i, n in enumerate(names) if phase1 in n), None)
+    after = names[first + 1:] if first is not None else names
+    if first is None or len(after) < 2 or "select_kernel" not in after[0] \
+            or "rescan_topk_kernel" not in after[1]:
+        raise AssertionError(f"{what}: device work after phase 1 is {after}")
+    log(f"{what}: {len(names)} device ops; after phase 1 select_kernel, rescan_topk_kernel "
+        f"({sum(e.time_range.elapsed_us() for e in ops[first + 1:first + 3]):.1f} us), then the "
+        f"answer; {len(after) - 2} ops on it after")
+
+
+def after_phase1(t: dict, whole: str, phase1: str) -> None:
+    """The time a two-phase scan spends after its phase 1."""
+    log(f"time: {whole} minus {phase1}: {t[whole]['ms'] - t[phase1]['ms']:.4f} ms events, "
+        f"{t[whole]['device_ms'] - t[phase1]['device_ms']:.4f} ms device")
 
 
 def build_phase():
@@ -221,7 +359,8 @@ def f32_kernel_phase():
     from semtools_tpu_torch.ops import fused_scan as fs
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    errs = {name: 0.0 for name in ("fused_tilemax", "fused_rescan", "fused_scan_candidates")}
+    errs = {name: 0.0 for name in ("fused_tilemax", "fused_rescan_topk", "fused_scan_candidates",
+                                   "select_subtiles")}
     times = {}
     cases = [(n, torch.float32) for n in (2_000_000, 10_000_000)] + [(2_000_000, torch.bfloat16)]
     for n, dtype in cases:
@@ -234,10 +373,12 @@ def f32_kernel_phase():
             errs["fused_tilemax"] = max(errs["fused_tilemax"], agree(
                 "tilemax", fs.tilemax(q, e, n_true), ref_max))
             for k in (3, 10, 64):
-                ids = fs.select_subtiles(ref_max, k)
-                v, i = fs.rescan(q, e, n_true, ids, k)
-                vr, ir = fs.rescan_reference(q, e, n_true, ids, k + 1)
-                errs["fused_rescan"] = max(errs["fused_rescan"], agree("rescan", v, vr, i, ir))
+                ids = fs.top_subtiles(ref_max, k)
+                equal("select_subtiles", ids, fs.select_subtiles(ref_max, k))
+                v, i = fs.rescan_topk(q, e, n_true, ids, k)
+                vr, ir = fs.rescan_topk_reference(q, e, n_true, ids, k + 1)
+                errs["fused_rescan_topk"] = max(errs["fused_rescan_topk"],
+                                                agree("rescan_topk", v, vr, i, ir))
                 cv, ci = fs.scan_candidates(q, e, n_true, k)
                 cvr, cir = fs.scan_candidates_reference(q, e, n_true, k + 1)
                 errs["fused_scan_candidates"] = max(
@@ -265,33 +406,37 @@ def time_f32_kernels(e, n_true, gen):
 
     qn, k = 8, 10
     q = unit_rows(qn, gen)
-    ids = fs.select_subtiles(fs.tilemax_reference(q, e, n_true), k)
+    sub_max = fs.tilemax(q, e, n_true)
+    ids = fs.top_subtiles(sub_max, k)
     item = e.element_size()
     s = fs._num_blocks(n_true)
     u = ids.unique().numel()
     scan_ops = 2.0 * qn * n_true * D
+    two_phase_ops(f"{e.dtype} _two_phase_topk", lambda: fs._two_phase_topk(q, e, n_true, k),
+                  "tilemax_kernel")
     t = {
-        "fused_tilemax": (
-            cuda_ms(lambda: fs.tilemax(q, e, n_true)),
-            cuda_ms(lambda: fs.tilemax_reference(q, e, n_true)),
-            bound(n_true * D * item + qn * D * 4 + qn * s * 4, scan_ops, "f32")),
-        "fused_rescan": (
-            cuda_ms(lambda: fs.rescan(q, e, n_true, ids, k)),
-            cuda_ms(lambda: fs.rescan_reference(q, e, n_true, ids, k)),
-            bound(u * fs.SUB_ROWS * D * item + qn * D * 4 + ids.numel() * (8 + k * 12),
-                  2.0 * ids.numel() * fs.SUB_ROWS * D, "f32")),
-        "fused_scan_candidates": (
-            cuda_ms(lambda: fs.scan_candidates(q, e, n_true, k)),
-            cuda_ms(lambda: fs.scan_candidates_reference(q, e, n_true, k)),
-            bound(n_true * D * item + qn * D * 4 + s * qn * k * 12, scan_ops, "f32")),
-        "topk_scan": (
-            cuda_ms(lambda: fs.fused_topk_scan(q, e, k, n_true=n_true)),
-            cuda_ms(lambda: _topk_chunk(q, e, 0, n_true, k)),
+        "fused_tilemax": timing(
+            lambda: fs.tilemax(q, e, n_true),
+            lambda: fs.tilemax_reference(q, e, n_true),
+            bound(n_true * D * item + qn * D * 4 + qn * s * 4, scan_ops, "f32"), "tilemax_kernel"),
+        "select_subtiles": select_timing(sub_max, k),
+        "fused_rescan_topk": timing(
+            lambda: fs.rescan_topk(q, e, n_true, ids, k),
+            lambda: fs.rescan_topk_reference(q, e, n_true, ids, k),
+            bound(u * fs.SUB_ROWS * D * item + qn * D * 4 + ids.numel() * 8 + qn * k * 12,
+                  2.0 * ids.numel() * fs.SUB_ROWS * D, "f32"), "rescan_topk_kernel"),
+        "fused_scan_candidates": timing(
+            lambda: fs.scan_candidates(q, e, n_true, k),
+            lambda: fs.scan_candidates_reference(q, e, n_true, k),
+            bound(n_true * D * item + qn * D * 4 + s * qn * k * 12, scan_ops, "f32"),
+            "scan_kernel"),
+        "topk_scan": timing(
+            lambda: fs.fused_topk_scan(q, e, k, n_true=n_true),
+            lambda: _topk_chunk(q, e, 0, n_true, k),
             bound(n_true * D * item, scan_ops, "f32")),
     }
-    for name, (ms, plain, (b, by)) in t.items():
-        log(f"time: {e.dtype} N={e.shape[0]} Q={qn} k={k} {name}: kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, bound {b:.4f} ms ({by})")
+    log_times(f"{e.dtype} N={e.shape[0]} Q={qn} k={k}", t)
+    after_phase1(t, "topk_scan", "fused_tilemax")
     return t
 
 
@@ -311,7 +456,7 @@ def int8_kernel_phase():
     import torch
 
     from semtools_tpu_torch.ops import int8_scan as i8
-    from semtools_tpu_torch.ops.fused_scan import select_subtiles
+    from semtools_tpu_torch.ops.fused_scan import select_subtiles, top_subtiles
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     errs = {name: 0.0 for name in REPLACES if name.startswith("int8")}
@@ -332,11 +477,13 @@ def int8_kernel_phase():
                 errs["int8_tilemax" + sfx] = max(errs["int8_tilemax" + sfx], equal(
                     f"int8_tilemax{sfx}", i8.tilemax(q8, e8, n_true, mask), ref_max))
                 for k in (3, 10, 64):
-                    ids = select_subtiles(ref_max, k)
-                    v, i = i8.rescan(q8, e8, n_true, ids, k, mask)
-                    vr, ir = i8.rescan_reference(q8, e8, n_true, ids, k, mask)
-                    errs["int8_rescan" + sfx] = max(errs["int8_rescan" + sfx], equal(
-                        f"int8_rescan{sfx}", v, vr, i, ir))
+                    ids = top_subtiles(ref_max, k)
+                    equal("select_subtiles", ids, select_subtiles(ref_max, k))
+                    v, i = i8.rescan_topk(q8, e8, n_true, ids, k, mask)
+                    vr, ir = i8.rescan_topk_reference(q8, e8, n_true, ids, k, mask)
+                    errs["int8_rescan_topk" + sfx] = max(errs["int8_rescan_topk" + sfx], equal(
+                        f"int8_rescan_topk{sfx}", v, vr, i, ir))
+                    equal(f"int8_rescan_topk{sfx} filler rows", i, ir)
                     d, idx = i8.int8_topk_scan(q, e8, e_scale, k, n_true=n_true, mask=mask)
                     want = sorted(dups)[: min(k, len(dups))]
                     if mask is None and idx[0, : len(want)].tolist() != want:
@@ -355,8 +502,8 @@ def int8_kernel_phase():
 
 def time_int8_kernels(e8, e_scale, n_true, gen):
     from semtools_tpu_torch.ops import int8_scan as i8
-    from semtools_tpu_torch.ops.fused_scan import SUB_ROWS, _num_blocks, merge_candidates, \
-        select_subtiles
+    from semtools_tpu_torch.ops.fused_scan import SUB_ROWS, _num_blocks, select_subtiles, \
+        top_subtiles
 
     qn, k = 8, 10
     q = unit_rows(qn, gen)
@@ -366,30 +513,36 @@ def time_int8_kernels(e8, e_scale, n_true, gen):
 
     def plain_topk(mask):
         sub = i8.tilemax_reference(q8, e8, n_true, mask)
-        v, i = i8.rescan_reference(q8, e8, n_true, select_subtiles(sub, k), k, mask)
-        return merge_candidates(v.flatten(1), i.flatten(1), k)
+        return i8.rescan_topk_reference(q8, e8, n_true, select_subtiles(sub, k), k, mask)
 
     t = {}
     for sfx, m in (("", None), ("_masked", mask)):
-        ids = select_subtiles(i8.tilemax(q8, e8, n_true, m), k)
+        sub_max = i8.tilemax(q8, e8, n_true, m)
+        ids = top_subtiles(sub_max, k)
         u = ids.unique().numel()
+        two_phase_ops(f"int8_two_phase{sfx}", lambda: i8.int8_two_phase(q8, e8, n_true, k, m),
+                      "sweep_kernel")
+        if m is None:
+            t["select_subtiles"] = select_timing(sub_max, k)
         mask_bytes = 0 if m is None else n_true
-        t["int8_tilemax" + sfx] = (
-            cuda_ms(lambda: i8.tilemax(q8, e8, n_true, m)),
-            cuda_ms(lambda: i8.tilemax_reference(q8, e8, n_true, m)),
-            bound(n_true * D + mask_bytes + qn * D + qn * s * 4, 2.0 * qn * n_true * D, "int8"))
-        t["int8_rescan" + sfx] = (
-            cuda_ms(lambda: i8.rescan(q8, e8, n_true, ids, k, m)),
-            cuda_ms(lambda: i8.rescan_reference(q8, e8, n_true, ids, k, m)),
+        t["int8_tilemax" + sfx] = timing(
+            lambda: i8.tilemax(q8, e8, n_true, m),
+            lambda: i8.tilemax_reference(q8, e8, n_true, m),
+            bound(n_true * D + mask_bytes + qn * D + qn * s * 4, 2.0 * qn * n_true * D, "int8"),
+            "sweep_kernel")
+        t["int8_rescan_topk" + sfx] = timing(
+            lambda: i8.rescan_topk(q8, e8, n_true, ids, k, m),
+            lambda: i8.rescan_topk_reference(q8, e8, n_true, ids, k, m),
             bound(u * SUB_ROWS * (D + (0 if m is None else 1)) + qn * D
-                  + ids.numel() * (8 + k * 12), 2.0 * ids.numel() * SUB_ROWS * D, "int8"))
-        t["int8_topk_scan" + sfx] = (
-            cuda_ms(lambda: i8.int8_topk_scan(q, e8, e_scale, k, n_true=n_true, mask=m)),
-            cuda_ms(lambda: plain_topk(m)),
+                  + ids.numel() * 8 + qn * k * 12, 2.0 * ids.numel() * SUB_ROWS * D, "int8"),
+            "rescan_topk_kernel")
+        t["int8_topk_scan" + sfx] = timing(
+            lambda: i8.int8_topk_scan(q, e8, e_scale, k, n_true=n_true, mask=m),
+            lambda: plain_topk(m),
             bound(n_true * D + mask_bytes, 2.0 * qn * n_true * D, "int8"))
-    for name, (ms, plain, (b, by)) in t.items():
-        log(f"time: int8 N={e8.shape[0]} Q={qn} k={k}{' 50% mask' if 'masked' in name else ''} "
-            f"{name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms ({by})")
+    log_times(f"int8 N={e8.shape[0]} Q={qn} k={k}", t)
+    for sfx in ("", "_masked"):
+        after_phase1(t, "int8_topk_scan" + sfx, "int8_tilemax" + sfx)
     return t
 
 
@@ -442,19 +595,18 @@ def same_candidates(what, ids, want, n_true, sims=None):
 def plain_int4_topk(q8, p4, n_true, k, mask):
     """int4_two_phase's composition through the plain phases."""
     from semtools_tpu_torch.ops import int4_scan as i4
-    from semtools_tpu_torch.ops.fused_scan import SUB_ROWS, merge_candidates, select_subtiles
+    from semtools_tpu_torch.ops.fused_scan import select_subtiles
 
     sub = i4.tilemax_reference(q8, p4, n_true, mask)
-    ids = select_subtiles(sub, min(k, sub.shape[1]))
-    v, i = i4.rescan_reference(q8, p4, n_true, ids, min(k, SUB_ROWS), mask)
-    return merge_candidates(v.flatten(1), i.flatten(1), k)
+    return i4.rescan_topk_reference(q8, p4, n_true, select_subtiles(sub, min(k, sub.shape[1])),
+                                    k, mask)
 
 
 def int4_kernel_phase():
     import torch
 
     from semtools_tpu_torch.ops import int4_scan as i4
-    from semtools_tpu_torch.ops.fused_scan import MAX_QUERIES, SUB_ROWS, select_subtiles
+    from semtools_tpu_torch.ops.fused_scan import MAX_QUERIES, select_subtiles, top_subtiles
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     errs = {name: 0.0 for name in REPLACES if name.startswith("int4")}
@@ -479,11 +631,13 @@ def int4_kernel_phase():
                     ref_sub = i4.tilemax_reference(qc, p4, n_true, mask)
                     equal(f"int4_tilemax{sfx}", i4.tilemax(qc, p4, n_true, mask), ref_sub)
                     for k in (3, 10, 64, 200):
-                        ids = select_subtiles(ref_sub, min(k, ref_sub.shape[1]))
-                        kr = min(k, SUB_ROWS)
-                        v, i = i4.rescan(qc, p4, n_true, ids, kr, mask)
-                        vr, ir = i4.rescan_reference(qc, p4, n_true, ids, kr, mask)
-                        equal(f"int4_rescan{sfx}", v, vr, i, ir)
+                        kt = min(k, ref_sub.shape[1])
+                        ids = top_subtiles(ref_sub, kt)
+                        equal("select_subtiles", ids, select_subtiles(ref_sub, kt))
+                        v, i = i4.rescan_topk(qc, p4, n_true, ids, k, mask)
+                        vr, ir = i4.rescan_topk_reference(qc, p4, n_true, ids, k, mask)
+                        equal(f"int4_rescan_topk{sfx}", v, vr, i, ir)
+                        equal(f"int4_rescan_topk{sfx} filler rows", i, ir)
                         del v, i, vr, ir
                 ref_sims, ref_max = torch.cat(ref_sims), torch.cat(ref_max)
                 cand = i4.int4_deep_candidates(q, p4, n_true=n_true, mask=mask)
@@ -564,7 +718,7 @@ def int4_topk_path(p4, n_true, dups, gen):
 
 def time_int4_kernels(p4, n_true, gen):
     from semtools_tpu_torch.ops import int4_scan as i4
-    from semtools_tpu_torch.ops.fused_scan import SUB_ROWS, _num_blocks, select_subtiles
+    from semtools_tpu_torch.ops.fused_scan import SUB_ROWS, _num_blocks, top_subtiles
 
     qn, k = 8, 10
     q, q8, _ = int4_queries(p4, qn, gen)
@@ -580,33 +734,38 @@ def time_int4_kernels(p4, n_true, gen):
     t = {}
     for sfx, m in (("", None), ("_masked", mask)):
         mask_bytes = 0 if m is None else n_true
-        ids = select_subtiles(i4.tilemax(q8, p4, n_true, m), k)
+        ids = top_subtiles(i4.tilemax(q8, p4, n_true, m), k)
         u = ids.unique().numel()
-        t["int4_sims_max" + sfx] = (
-            cuda_ms(lambda: i4.sims_max(q8, p4, n_true, m)),
-            cuda_ms(lambda: i4.sims_max_reference(q8, p4, n_true, m), reps=5),
+        two_phase_ops(f"int4_two_phase{sfx}", lambda: i4.int4_two_phase(q8, p4, n_true, k, m),
+                      "sweep_kernel")
+        t["int4_sims_max" + sfx] = timing(
+            lambda: i4.sims_max(q8, p4, n_true, m),
+            lambda: i4.sims_max_reference(q8, p4, n_true, m),
             bound(n_true * row_bytes + mask_bytes + qn * D + qn * n_pad * 4
-                  + qn * (n_pad // i4.SIMS_ROWS) * 4, scan_ops, "int8"))
-        t["int4_tilemax" + sfx] = (
-            cuda_ms(lambda: i4.tilemax(q8, p4, n_true, m)),
-            cuda_ms(lambda: i4.tilemax_reference(q8, p4, n_true, m), reps=5),
-            bound(n_true * row_bytes + mask_bytes + qn * D + qn * s * 4, scan_ops, "int8"))
-        t["int4_rescan" + sfx] = (
-            cuda_ms(lambda: i4.rescan(q8, p4, n_true, ids, k, m)),
-            cuda_ms(lambda: i4.rescan_reference(q8, p4, n_true, ids, k, m)),
+                  + qn * (n_pad // i4.SIMS_ROWS) * 4, scan_ops, "int8"), "sweep_kernel",
+            plain_reps=5)
+        t["int4_tilemax" + sfx] = timing(
+            lambda: i4.tilemax(q8, p4, n_true, m),
+            lambda: i4.tilemax_reference(q8, p4, n_true, m),
+            bound(n_true * row_bytes + mask_bytes + qn * D + qn * s * 4, scan_ops, "int8"),
+            "sweep_kernel", plain_reps=5)
+        t["int4_rescan_topk" + sfx] = timing(
+            lambda: i4.rescan_topk(q8, p4, n_true, ids, k, m),
+            lambda: i4.rescan_topk_reference(q8, p4, n_true, ids, k, m),
             bound(u * SUB_ROWS * (row_bytes + (0 if m is None else 1)) + qn * D
-                  + ids.numel() * (8 + k * 12), 2.0 * ids.numel() * SUB_ROWS * D, "int8"))
-        t["int4_topk_scan" + sfx] = (
-            cuda_ms(lambda: i4.int4_topk_scan(q, p4, E_SCALE, k, n_true=n_true, mask=m)),
-            cuda_ms(lambda: plain_int4_topk(q8, p4, n_true, k, m), reps=5),
-            bound(n_true * row_bytes + mask_bytes, scan_ops, "int8"))
-        t["int4_deep_candidates" + sfx] = (
-            cuda_ms(lambda: i4.int4_deep_candidates(q, p4, n_true=n_true, mask=m)),
-            cuda_ms(lambda: plain_deep(m), reps=5),
-            bound(n_true * row_bytes + mask_bytes, scan_ops, "int8"))
-    for name, (ms, plain, (b, by)) in t.items():
-        log(f"time: int4 N={p4.shape[0]} Q={qn} k={k}{' 50% mask' if 'masked' in name else ''} "
-            f"{name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms ({by})")
+                  + ids.numel() * 8 + qn * k * 12, 2.0 * ids.numel() * SUB_ROWS * D, "int8"),
+            "rescan_topk_kernel")
+        t["int4_topk_scan" + sfx] = timing(
+            lambda: i4.int4_topk_scan(q, p4, E_SCALE, k, n_true=n_true, mask=m),
+            lambda: plain_int4_topk(q8, p4, n_true, k, m),
+            bound(n_true * row_bytes + mask_bytes, scan_ops, "int8"), plain_reps=5)
+        t["int4_deep_candidates" + sfx] = timing(
+            lambda: i4.int4_deep_candidates(q, p4, n_true=n_true, mask=m),
+            lambda: plain_deep(m),
+            bound(n_true * row_bytes + mask_bytes, scan_ops, "int8"), plain_reps=5)
+    log_times(f"int4 N={p4.shape[0]} Q={qn} k={k}", t)
+    for sfx in ("", "_masked"):
+        after_phase1(t, "int4_topk_scan" + sfx, "int4_tilemax" + sfx)
     busy, wall, ops = device_busy(lambda: i4.int4_deep_candidates(q, p4, n_true=n_true), top=6)
     log(f"time: int4_deep_candidates N={p4.shape[0]} Q={qn} under torch.profiler: device busy "
         f"{busy:.3f} ms of {wall:.3f} ms wall; by kernel: "
@@ -727,7 +886,8 @@ def main_path_phase(files, small):
         out, _, wall, stages = run_cli(argv)
         outs[label] = out
         log(f"main: semtools search ({label}): {wall:.3f} s wall; stages: {stages}")
-    launches = launches_of(("fused_tilemax", "fused_rescan", "fused_scan_candidates"), "main")
+    launches = launches_of(("fused_tilemax", "select_subtiles", "fused_rescan_topk",
+                            "fused_scan_candidates"), "main")
     return outs, str(qfile), launches
 
 
@@ -799,8 +959,8 @@ def workspace_phase(files, qfile, model, corpus, starts):
             hits["edit"] = out
             log(f"workspace: search -w (one-line edit): {wall:.3f} s wall; stages: {stages}; "
                 f"{[ln.strip() for ln in err.splitlines() if 'reused' in ln][0]}")
-            launches = launches_of([n for n in REPLACES if n.startswith("int8")
-                                    or n in ("fused_tilemax", "fused_rescan")], "workspace")
+            launches = launches_of([n for n in REPLACES if n.startswith("int8") or n in (
+                "fused_tilemax", "select_subtiles", "fused_rescan_topk")], "workspace")
 
             status = json.loads(run_cli(["workspace", "status", "smoke", "-j"])[0])
             text = run_cli(["workspace", "status", "smoke"])[0]
@@ -923,6 +1083,7 @@ def main() -> int:
 
     dev = resolve_device("cuda")
     build_phase()
+    floor = launch_floor()
     errs, times = f32_kernel_phase()
     errs8, times8 = int8_kernel_phase()
     errs4, times4, k5_launches = int4_kernel_phase()
@@ -958,22 +1119,25 @@ def main() -> int:
     tracing.reset()  # the checks' own stages: nothing to report at exit
 
     # each kernel's launches on its own path's run: the plain search for the
-    # fused kernels, workspace search for int8, the int4-tier workspace
-    # steps for the sweep (K6) and int4_topk_scan's calls for K5
-    path_of = {name: launches for name in REPLACES if name.startswith("fused")}
+    # fused kernels and the selection, workspace search for int8, the
+    # int4-tier workspace steps for the sweep (K6) and int4_topk_scan's
+    # calls for K5
+    path_of = {name: launches for name in REPLACES
+               if name.startswith("fused") or name == "select_subtiles"}
     path_of.update({name: ws_launches for name in REPLACES if name.startswith("int8")})
-    path_of.update({name: k5_launches for name in K5})
+    path_of.update({name: k5_launches for name in K5 if name != "select_subtiles"})
     path_of.update({name: k6_launches for name in K6})
     summary = {"kernels": []}
     for name in REPLACES:
-        ms, plain, (b, by) = times[name]
+        r = times[name]
         summary["kernels"].append({
             "name": name, "route": "cuda",
             "source": SOURCES[name.split("_")[0]],
             "replaces": REPLACES[name],
             "launches": path_of[name][name],
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
-            "bound_ms": b, "bound_by": by, "library_ms": None,
+            "max_abs_err": errs[name], "ms": r["ms"], "device_ms": r["device_ms"],
+            "floor_ms": floor[1], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     log(card or "nvidia-smi: name and power limit unavailable")
     log(json.dumps(summary))

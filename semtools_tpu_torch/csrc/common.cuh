@@ -1,5 +1,6 @@
-// Pieces shared by the scan kernels (fused_scan.cu, int8_scan.cu): block
-// shape, the warp-level exact top-k extraction, and the launch helpers.
+// Pieces shared by the scan kernels (fused_scan.cu, int_scan.cuh,
+// topk.cuh): block shape, the warp-level exact top-k extraction of the
+// single-phase scan, the row keep test and the launch helpers.
 //
 // Tie rule (exactness, see KERNELS.md "Two-phase kernel"): candidates are
 // ordered by (value desc, row index asc) everywhere.
@@ -9,7 +10,10 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <atomic>
 #include <climits>
+#include <cstdint>
+#include <mutex>
 
 namespace semtools {
 
@@ -61,26 +65,55 @@ __device__ inline void warp_topk(const float* s, int k, long long base, float* o
   }
 }
 
-// Dynamic shared memory above 48 KB must be opted into per kernel.
-template <typename K>
-cudaError_t prepare(K kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Row `row` takes part in a scan: below n_true and, with MASKED, kept by the
+// uint8 keep vector.
+template <bool MASKED>
+__device__ __forceinline__ bool keep(const uint8_t* __restrict__ mask, long long row,
+                                     long long n_true) {
+  return row < n_true && (!MASKED || mask[row] != 0);
 }
 
-// Enough blocks to fill every SM at the kernel's occupancy, at most `work`.
-template <typename K>
-cudaError_t grid_for(K kernel, size_t smem, long long work, int* grid) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long cap = (long long)sms * per_sm;
-  *grid = (int)(work < cap ? work : cap);
-  return cudaSuccess;
-}
+// What a launcher asks the driver about its kernel, asked once: the
+// dynamic shared memory opted into (above 48 KB it must be) and the blocks
+// that fill the card at the last size asked. A launcher holds one as a
+// function-local static, one per kernel instance, so a launch costs its
+// <<<>>> and a cudaGetLastError. One card per process.
+struct LaunchCache {
+  std::mutex lock;
+  std::atomic<size_t> allowed{0};
+  std::atomic<unsigned long long> fill{0};  // smem << 32 | blocks; 0 until asked
+
+  template <typename K>
+  cudaError_t prepare(K kernel, size_t smem) {
+    if (smem <= allowed.load(std::memory_order_acquire)) return cudaSuccess;
+    std::lock_guard<std::mutex> hold(lock);
+    if (smem <= allowed.load(std::memory_order_relaxed)) return cudaSuccess;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess) allowed.store(smem, std::memory_order_release);
+    return err;
+  }
+
+  // Enough blocks to fill every SM at the kernel's occupancy, at most `work`.
+  template <typename K>
+  cudaError_t grid_for(K kernel, size_t smem, long long work, int* grid) {
+    unsigned long long f = fill.load(std::memory_order_relaxed);
+    if (f == 0 || (f >> 32) != smem) {
+      int dev = 0, sms = 0, per_sm = 0;
+      cudaError_t err = cudaGetDevice(&dev);
+      if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+      if (err != cudaSuccess) return err;
+      if (per_sm < 1) return cudaErrorInvalidConfiguration;
+      f = (static_cast<unsigned long long>(smem) << 32) | static_cast<unsigned>(sms * per_sm);
+      fill.store(f, std::memory_order_relaxed);
+    }
+    const long long cap = static_cast<long long>(f & 0xffffffffull);
+    *grid = (int)(work < cap ? work : cap);
+    return cudaSuccess;
+  }
+};
 
 }  // namespace semtools
 

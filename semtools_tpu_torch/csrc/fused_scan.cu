@@ -6,9 +6,14 @@
 //   fused_tilemax          replaces pallas_scan.py:_tilemax_kernel (phase 1 of
 //                          _two_phase_topk): each query's max similarity over
 //                          every SUB-row sub-tile of the corpus.
-//   fused_rescan           replaces pallas_scan.py:_rescan_kernel (phase 2):
-//                          for each (query, chosen sub-tile) pair, that query's
-//                          sims over the SUB rows, then its exact top-k.
+//   fused_rescan_topk      replaces pallas_scan.py:_rescan_kernel (phase 2,
+//                          :293-318) and the merge after it
+//                          (merge_candidates_sorted, :389): for each query, its
+//                          sims over the rows of its chosen sub-tiles and
+//                          their exact top-k, in one launch (topk.cuh
+//                          rescan_topk_kernel on f32/bf16 rows, FloatRows
+//                          below). The sub-tiles come from select_subtiles
+//                          (select.cu), which replaces the lax.top_k at :362.
 //   fused_scan_candidates  replaces pallas_scan.py:_scan_kernel (single
 //                          phase, _pallas_candidates): each tile's exact
 //                          top-k for every query.
@@ -20,9 +25,13 @@
 // bound by the corpus read (the FMA rate close behind at Q = 32; bf16 at
 // Q = 32, 32 flops per byte, is bound by the FMAs). The reference scores
 // f32 at HIGHEST precision, so the sums are f32 FMAs on the CUDA cores (no
-// TF32 tensor-core path, which keeps ~3 decimal digits).
+// TF32 tensor-core path, which keeps ~3 decimal digits). The rescan reads
+// Q*k sub-tiles (10 MB at Q = 8, k = 10, 3 us at 3.35 TB/s): it is bound by
+// how many of those bytes are in flight at once, which topk.cuh's design
+// addresses (every row load of a thread issued before the sums, four blocks
+// per f32 sub-tile).
 //
-// What the design does about it:
+// What the sweeps' design does about it:
 //   * the corpus is read once, in row-major 16-byte vector loads where
 //     neighbouring threads read neighbouring addresses (each row chunk is 128
 //     contiguous bytes), staged through shared memory one 128-byte column
@@ -32,8 +41,9 @@
 //   * each thread owns one corpus row and keeps its Q partial sums in
 //     registers, so one staged float4 feeds 4*Q FMAs;
 //   * selection never leaves the chip: phase 1 writes Q floats per SUB rows
-//     (Q*N/32 bytes next to the 4*N*D-byte corpus read), the selection is a
-//     warp-level k-round (max, earliest index, mask out) over ROWS values;
+//     (Q*N/32 bytes next to the 4*N*D-byte corpus read), the single-phase
+//     selection is a warp-level k-round (max, earliest index, mask out) over
+//     ROWS values;
 //   * blocks walk the sub-tiles grid-stride, so the queries are loaded once
 //     per block rather than once per sub-tile.
 // Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit (2M x 256
@@ -49,8 +59,8 @@
 // sub-tile keeps the phase-2 re-read at Q*k*128 rows (0.5% of a 2M-row
 // corpus at Q = 8, k = 10) and the phase-1 output at Q*N/128 floats.
 //
-// Tie rule (exactness, see KERNELS.md "Two-phase kernel"): within a block,
-// candidates are ordered by (value desc, row index asc) (common.cuh).
+// Tie rule (exactness, see KERNELS.md "Two-phase kernel"): candidates are
+// ordered by (value desc, row index asc) (common.cuh, topk.cuh).
 //
 // Interface: plain C entry points (bound with ctypes). Each returns the
 // cudaError_t of its launch as an int; it launches on the given stream and
@@ -62,16 +72,15 @@
 
 #include <cstdint>
 
-#include "common.cuh"
+#include "topk.cuh"
 
 namespace {
 
 using semtools::FULL;
+using semtools::LaunchCache;
 using semtools::ROWS;
 using semtools::THREADS;
 using semtools::WARPS;
-using semtools::grid_for;
-using semtools::prepare;
 using semtools::warp_topk;
 
 constexpr int CHUNK_BYTES = 128;   // bytes of each row staged per step
@@ -84,20 +93,21 @@ struct Vec;
 template <>
 struct Vec<float> {
   static constexpr int N = 4;
+  __device__ __forceinline__ static void widen(const int4 v, float* out) {
+    out[0] = __int_as_float(v.x);
+    out[1] = __int_as_float(v.y);
+    out[2] = __int_as_float(v.z);
+    out[3] = __int_as_float(v.w);
+  }
   __device__ __forceinline__ static void load(const float* p, float* out) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    out[0] = v.x;
-    out[1] = v.y;
-    out[2] = v.z;
-    out[3] = v.w;
+    widen(__ldg(reinterpret_cast<const int4*>(p)), out);
   }
 };
 
 template <>
 struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  __device__ __forceinline__ static void widen(const int4 v, float* out) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -105,6 +115,9 @@ struct Vec<__nv_bfloat16> {
       out[2 * i] = f.x;
       out[2 * i + 1] = f.y;
     }
+  }
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
+    widen(__ldg(reinterpret_cast<const int4*>(p)), out);
   }
 };
 
@@ -126,6 +139,32 @@ __device__ void load_queries(const float* __restrict__ q, int q_first, int qn, i
     qs[i] = (j < qn && c < d) ? q[(long long)(q_first + j) * d + c] : 0.f;
   }
 }
+
+// f32 / bf16 rows for topk.cuh's rescan_topk_kernel: the query in shared
+// memory as f32 (zero-padded to whole staged chunks), one 16-byte vector of
+// the row widened to f32 and multiplied into an f32 sum.
+template <typename T>
+struct FloatRows {
+  using Query = float;
+  using Acc = float;
+  __host__ __device__ static int row_vecs(int d) { return d * (int)sizeof(T) / 16; }
+  __host__ __device__ static int query_words(int d) { return Layout<T>::dq(d); }
+  __host__ __device__ static int query_len(int d) { return d; }
+  __device__ static float query_word(const float* __restrict__ q, int d, int c) {
+    return c < d ? q[c] : 0.f;
+  }
+  __device__ __forceinline__ static float vec_dot(const int4 x, const float* qs, int v, int,
+                                                  float acc) {
+    constexpr int V = Vec<T>::N;
+    float f[V];
+    Vec<T>::widen(x, f);
+    const float* y = qs + v * V;
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc = fmaf(f[i], y[i], acc);
+    return acc;
+  }
+  __device__ static float sim(float acc) { return acc; }
+};
 
 // Sims of rows [row0, row0 + ROWS) against the QB queries in qs: thread t
 // gets row row0 + t in acc. Rows >= n_valid read as zero (callers mask).
@@ -215,28 +254,6 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// Phase 2: block b rescans sub-tile sub_ids[b] for its owner query
-// b / k_tiles and writes that query's top-k of the ROWS rows.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    rescan_kernel(const float* __restrict__ q, const T* __restrict__ e, int d, long long n_true,
-                  const long long* __restrict__ sub_ids, int k_tiles, int k,
-                  float* __restrict__ out_v, long long* __restrict__ out_i) {
-  extern __shared__ float4 smem4[];
-  const int dq = Layout<T>::dq(d);
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* stage = qs + dq;
-  float* sims = stage + ROWS * Layout<T>::SS;  // [ROWS]
-  const int b = blockIdx.x;
-  const long long row0 = sub_ids[b] * ROWS;
-  load_queries<1>(q, b / k_tiles, 1, d, dq, qs);
-  float acc[1];
-  block_dots<T, 1>(e, d, row0, n_true, qs, dq, stage, acc);
-  sims[threadIdx.x] = row0 + threadIdx.x < n_true ? acc[0] : -CUDART_INF_F;
-  __syncthreads();
-  if (threadIdx.x < 32) warp_topk(sims, k, row0, out_v + (long long)b * k, out_i + (long long)b * k);
-}
-
 // Single phase: for each ROWS-row tile t, every query's top-k of the tile,
 // written to out[t, j, :]. num_tiles = ceil(n_true / ROWS).
 template <typename T, int QB>
@@ -272,10 +289,11 @@ cudaError_t launch_tilemax(const float* q, const void* e, int qn, int d, long lo
                            float* out, long long num_subs, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)QB * Layout<T>::dq(d) + ROWS * Layout<T>::SS + WARPS * QB);
+  static LaunchCache cache;
   auto kernel = tilemax_kernel<T, QB>;
   int grid = 0;
-  cudaError_t err = prepare(kernel, smem);
-  if (err == cudaSuccess) err = grid_for(kernel, smem, num_subs, &grid);
+  cudaError_t err = cache.prepare(kernel, smem);
+  if (err == cudaSuccess) err = cache.grid_for(kernel, smem, num_subs, &grid);
   if (err != cudaSuccess) return err;
   kernel<<<grid, THREADS, smem, stream>>>(q, static_cast<const T*>(e), qn, d, n_true, num_subs, out);
   return cudaGetLastError();
@@ -287,26 +305,14 @@ cudaError_t launch_scan(const float* q, const void* e, int qn, int d, long long 
                         cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)QB * Layout<T>::dq(d) + ROWS * Layout<T>::SS + QB * ROWS);
+  static LaunchCache cache;
   auto kernel = scan_kernel<T, QB>;
   int grid = 0;
-  cudaError_t err = prepare(kernel, smem);
-  if (err == cudaSuccess) err = grid_for(kernel, smem, num_tiles, &grid);
+  cudaError_t err = cache.prepare(kernel, smem);
+  if (err == cudaSuccess) err = cache.grid_for(kernel, smem, num_tiles, &grid);
   if (err != cudaSuccess) return err;
   kernel<<<grid, THREADS, smem, stream>>>(q, static_cast<const T*>(e), qn, d, n_true, num_tiles,
                                           k, out_v, out_i);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_rescan(const float* q, const void* e, int d, long long n_true,
-                          const long long* sub_ids, int n_pairs, int k_tiles, int k,
-                          float* out_v, long long* out_i, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)Layout<T>::dq(d) + ROWS * Layout<T>::SS + ROWS);
-  auto kernel = rescan_kernel<T>;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<n_pairs, THREADS, smem, stream>>>(q, static_cast<const T*>(e), d, n_true, sub_ids,
-                                             k_tiles, k, out_v, out_i);
   return cudaGetLastError();
 }
 
@@ -326,6 +332,7 @@ const char* semtools_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+
 // q [qn, d] f32; e [>= n_true, d] f32 or bf16; out [qn, num_subs] f32.
 int semtools_fused_tilemax(const float* q, const void* e, int dtype, int qn, int d,
                            long long n_true, float* out, long long num_subs, void* stream) {
@@ -340,19 +347,23 @@ int semtools_fused_tilemax(const float* q, const void* e, int dtype, int qn, int
   return static_cast<int>(err);
 }
 
-// sub_ids [qn * k_tiles] int64, query-major; out [qn * k_tiles, k].
-int semtools_fused_rescan(const float* q, const void* e, int dtype, int qn, int d,
-                          long long n_true, const long long* sub_ids, int k_tiles, int k,
-                          float* out_v, long long* out_i, void* stream) {
-  if (!valid_args(dtype, qn, d, n_true) || k_tiles < 1 || k < 1 || k > ROWS)
+// sub_ids [qn, kt] int64 (each query's chosen sub-tiles); scratch
+// [qn * kt * ROWS] 64-bit words; out [qn, k], value desc then row asc.
+int semtools_fused_rescan_topk(const float* q, const void* e, int dtype, int qn, int d,
+                               long long n_true, const long long* sub_ids, int kt, int k,
+                               unsigned long long* scratch, float* out_v, long long* out_i,
+                               void* stream) {
+  const int item = dtype == kF32 ? 4 : 2;
+  if (!valid_args(dtype, qn, d, n_true) || (d * item) % 16 ||
+      !semtools::valid_rescan(qn, n_true, kt, k))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_pairs = qn * k_tiles;
   const cudaError_t err =
-      dtype == kF32 ? launch_rescan<float>(q, e, d, n_true, sub_ids, n_pairs, k_tiles, k, out_v,
-                                           out_i, s)
-                    : launch_rescan<__nv_bfloat16>(q, e, d, n_true, sub_ids, n_pairs, k_tiles,
-                                                   k, out_v, out_i, s);
+      dtype == kF32
+          ? semtools::launch_rescan_topk<FloatRows<float>, false>(
+                q, e, nullptr, qn, d, n_true, sub_ids, kt, k, scratch, out_v, out_i, s)
+          : semtools::launch_rescan_topk<FloatRows<__nv_bfloat16>, false>(
+                q, e, nullptr, qn, d, n_true, sub_ids, kt, k, scratch, out_v, out_i, s);
   return static_cast<int>(err);
 }
 

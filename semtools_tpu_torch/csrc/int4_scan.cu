@@ -17,11 +17,13 @@
 //                         serving): rows where the uint8 keep vector is 0 read
 //                         as -inf in both outputs.
 //   int4_tilemax          replace _tilemax_kernel / _rescan_kernel (the two
-//   int4_rescan           phases of int4_topk_scan) and their masked
-//   int4_tilemax_masked   variants _tilemax_kernel_masked /
-//   int4_rescan_masked    _rescan_kernel_masked, on 128-row sub-tiles (the
+//   int4_rescan_topk      phases of int4_topk_scan; the rescan also merges,
+//   int4_tilemax_masked   as merge_candidates_sorted did after it) and their
+//   int4_rescan_topk_     masked variants _tilemax_kernel_masked /
+//     masked              _rescan_kernel_masked, on 128-row sub-tiles (the
 //                         exactness argument does not depend on the sub-tile
-//                         size).
+//                         size). select_subtiles (select.cu) replaces the
+//                         lax.top_k between them (:289, :684).
 //
 // Similarities are exact int32 sums (int_scan.cuh Int4Rows): the biased
 // low half (p & 15) . q_lo plus the signed high half (p >> 4) . q_hi, the
@@ -70,13 +72,15 @@ int semtools_int4_tilemax(const int8_t* q8, const int8_t* p4, const uint8_t* mas
                                                       static_cast<cudaStream_t>(stream)));
 }
 
-// sub_ids [qn * k_tiles] int64, query-major; out [qn * k_tiles, k].
-int semtools_int4_rescan(const int8_t* q8, const int8_t* p4, const uint8_t* mask, int qn, int d,
-                         long long n_true, const long long* sub_ids, int k_tiles, int k,
-                         float* out_v, long long* out_i, void* stream) {
-  return static_cast<int>(semtools::rescan<Int4Rows>(q8, p4, mask, qn, d, n_true, sub_ids,
-                                                     k_tiles, k, out_v, out_i,
-                                                     static_cast<cudaStream_t>(stream)));
+// sub_ids [qn, kt] int64; scratch [qn * kt * ROWS] 64-bit words; out [qn, k]
+// (any k up to kt * ROWS: above ROWS every chosen sub-tile is taken whole).
+int semtools_int4_rescan_topk(const int8_t* q8, const int8_t* p4, const uint8_t* mask, int qn,
+                              int d, long long n_true, const long long* sub_ids, int kt, int k,
+                              unsigned long long* scratch, float* out_v, long long* out_i,
+                              void* stream) {
+  return static_cast<int>(semtools::rescan_topk<Int4Rows>(q8, p4, mask, qn, d, n_true, sub_ids,
+                                                          kt, k, scratch, out_v, out_i,
+                                                          static_cast<cudaStream_t>(stream)));
 }
 
 // Rows per block of int4_sims_max (the JAX package's SUB_N).

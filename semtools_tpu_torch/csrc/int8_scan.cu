@@ -6,12 +6,15 @@
 //   int8_tilemax         replaces int8_scan.py:_tilemax_kernel (phase 1 of
 //                        _int8_two_phase): each query's max integer
 //                        similarity over every ROWS-row sub-tile.
-//   int8_rescan          replaces int8_scan.py:_rescan_kernel (phase 2): for
-//                        each (query, chosen sub-tile) pair, that query's
-//                        exact top-k of the sub-tile.
+//   int8_rescan_topk     replaces int8_scan.py:_rescan_kernel (phase 2) and
+//                        the merge after it (merge_candidates_sorted at
+//                        :214): each query's exact top-k of the rows of its
+//                        chosen sub-tiles, in one launch (topk.cuh). The
+//                        sub-tiles come from select_subtiles (select.cu),
+//                        which replaces the lax.top_k at :188 and :301.
 //   int8_tilemax_masked  replace _tilemax_kernel_masked / _rescan_kernel_masked
-//   int8_rescan_masked   (_int8_two_phase_masked, path-subset serving): the
-//                        same with a uint8 keep vector [n_true]; rows where
+//   int8_rescan_topk_    (_int8_two_phase_masked, path-subset serving): the
+//     masked             same with a uint8 keep vector [n_true]; rows where
 //                        it is 0 read as -inf in both phases.
 //
 // Integer similarities are exact: q8 . e8 summed in int32 with __dp4a
@@ -48,12 +51,13 @@ int semtools_int8_tilemax(const int8_t* q8, const int8_t* e8, const uint8_t* mas
       q8, e8, mask, qn, d, n_true, out, num_subs, static_cast<cudaStream_t>(stream)));
 }
 
-// sub_ids [qn * k_tiles] int64, query-major; out [qn * k_tiles, k].
-int semtools_int8_rescan(const int8_t* q8, const int8_t* e8, const uint8_t* mask, int qn, int d,
-                         long long n_true, const long long* sub_ids, int k_tiles, int k,
-                         float* out_v, long long* out_i, void* stream) {
-  return static_cast<int>(semtools::rescan<semtools::Int8Rows>(
-      q8, e8, mask, qn, d, n_true, sub_ids, k_tiles, k, out_v, out_i,
+// sub_ids [qn, kt] int64; scratch [qn * kt * ROWS] 64-bit words; out [qn, k].
+int semtools_int8_rescan_topk(const int8_t* q8, const int8_t* e8, const uint8_t* mask, int qn,
+                              int d, long long n_true, const long long* sub_ids, int kt, int k,
+                              unsigned long long* scratch, float* out_v, long long* out_i,
+                              void* stream) {
+  return static_cast<int>(semtools::rescan_topk<semtools::Int8Rows>(
+      q8, e8, mask, qn, d, n_true, sub_ids, kt, k, scratch, out_v, out_i,
       static_cast<cudaStream_t>(stream)));
 }
 

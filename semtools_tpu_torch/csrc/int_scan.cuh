@@ -18,16 +18,18 @@
 // tie rule (value desc, row index asc; common.cuh) holds.
 //
 // Kernels:
-//   sweep_kernel   one pass over the corpus: each query's max similarity over
-//                  every SPAN x ROWS-row block (phase 1 of the two-phase scan
-//                  at SPAN = 1; the int4 deep-candidate sweep at SPAN = 4,
-//                  which also writes every row's similarity, SIMS = true);
-//   rescan_kernel  phase 2: for each (query, chosen sub-tile) pair, that
-//                  query's exact top-k of the ROWS-row sub-tile.
+//   sweep_kernel        one pass over the corpus: each query's max similarity
+//                       over every SPAN x ROWS-row block (phase 1 of the
+//                       two-phase scan at SPAN = 1; the int4 deep-candidate
+//                       sweep at SPAN = 4, which also writes every row's
+//                       similarity, SIMS = true);
+//   rescan_topk_kernel  phase 2 and the merge (topk.cuh, on these formats):
+//                       each query's exact top-k of the rows of its chosen
+//                       sub-tiles, in one launch.
 // With MASKED, rows where the uint8 keep vector is 0 read as -inf; rows >=
 // n_true always do.
 //
-// Layout (the same for both formats): each thread owns one corpus row. The
+// Sweep layout (the same for both formats): each thread owns one corpus row. The
 // block stages ROWS rows x 128 bytes through shared memory at a time, 8
 // neighbouring threads reading one row's 128 contiguous bytes in 16-byte
 // loads (a padded stride keeps the per-thread 16-byte reads free of bank
@@ -42,7 +44,7 @@
 
 #include <cstdint>
 
-#include "common.cuh"
+#include "topk.cuh"
 
 namespace semtools {
 // Each source that includes this header instantiates its own format only;
@@ -58,8 +60,13 @@ __host__ __device__ inline int round_chunks(int words) {
 }
 
 struct Int8Rows {
+  using Query = int;
+  using Acc = int;
   // int32 words of one stored row of a width-d model
   __host__ __device__ static int row_words(int d) { return d / 4; }
+  __host__ __device__ static int row_vecs(int d) { return d / 16; }
+  // int32 words of one int8 query as the caller holds it
+  __host__ __device__ static int query_len(int d) { return d / 4; }
   // shared-memory words of one query: whole chunks, zero-filled past d / 4
   __host__ __device__ static int query_words(int d) { return round_chunks(d / 4); }
   __host__ static bool valid_width(int d) { return d > 0 && d % 16 == 0; }
@@ -75,10 +82,20 @@ struct Int8Rows {
     acc = __dp4a(x.z, y.z, acc);
     return __dp4a(x.w, y.w, acc);
   }
+  // the same for 16-byte vector v of the row (rescan_topk_kernel)
+  __device__ __forceinline__ static int vec_dot(const int4 x, const int* qs, int v, int dqw,
+                                                int acc) {
+    return dot(x, qs, 4 * v, dqw, acc);
+  }
+  __device__ static float sim(int acc) { return static_cast<float>(acc); }
 };
 
 struct Int4Rows {
+  using Query = int;
+  using Acc = int;
   __host__ __device__ static int row_words(int d) { return d / 8; }
+  __host__ __device__ static int row_vecs(int d) { return d / 32; }
+  __host__ __device__ static int query_len(int d) { return d / 4; }
   // the query's low half, then its high half, each padded to whole chunks,
   // so word w of a packed row meets query words w and half + w
   __host__ __device__ static int half_words(int d) { return round_chunks(d / 8); }
@@ -104,6 +121,11 @@ struct Int4Rows {
     h = __dp4a(x.w & ~LO, hi.w, h);
     return acc + (h >> 4);
   }
+  __device__ __forceinline__ static int vec_dot(const int4 x, const int* qs, int v, int dqw,
+                                                int acc) {
+    return dot(x, qs, 4 * v, dqw, acc);
+  }
+  __device__ static float sim(int acc) { return static_cast<float>(acc); }
 };
 
 // Queries [q_first, q_first + qn) of q8 [*, d] int8 (as d / 4 int32 words
@@ -147,12 +169,6 @@ __device__ __forceinline__ void block_dots(const int* __restrict__ rows, int rw,
       for (int j = 0; j < QB; ++j) acc[j] = Fmt::dot(x, qs + j * dqw, w0 + c, dqw, acc[j]);
     }
   }
-}
-
-template <bool MASKED>
-__device__ __forceinline__ bool keep(const uint8_t* __restrict__ mask, long long row,
-                                     long long n_true) {
-  return row < n_true && (!MASKED || mask[row] != 0);
 }
 
 // What one sweep computes: the row format, the mask, the rows per max
@@ -222,31 +238,6 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// Block b rescans sub-tile sub_ids[b] for its owner query b / k_tiles and
-// writes that query's top-k of the kept rows (-inf filler at the positions
-// of rows not kept when fewer than k are).
-template <class Fmt, bool MASKED>
-__global__ void __launch_bounds__(THREADS)
-    rescan_kernel(const int* __restrict__ q8, const int* __restrict__ rows,
-                  const uint8_t* __restrict__ mask, int d, long long n_true,
-                  const long long* __restrict__ sub_ids, int k_tiles, int k,
-                  float* __restrict__ out_v, long long* __restrict__ out_i) {
-  extern __shared__ int4 smem4[];
-  const int dqw = Fmt::query_words(d);
-  int* qs = reinterpret_cast<int*>(smem4);
-  int* stage = qs + dqw;
-  float* sims = reinterpret_cast<float*>(stage + ROWS * STAGE_STRIDE);  // [ROWS]
-  const int b = blockIdx.x;
-  const long long row0 = sub_ids[b] * ROWS;
-  load_queries<Fmt, 1>(q8, b / k_tiles, 1, d, dqw, qs);
-  int acc[1];
-  block_dots<Fmt, 1>(rows, Fmt::row_words(d), row0, n_true, qs, dqw, stage, acc);
-  sims[threadIdx.x] = keep<MASKED>(mask, row0 + threadIdx.x, n_true)
-                          ? static_cast<float>(acc[0]) : -CUDART_INF_F;
-  __syncthreads();
-  if (threadIdx.x < 32) warp_topk(sims, k, row0, out_v + (long long)b * k, out_i + (long long)b * k);
-}
-
 template <class Cfg, int QB>
 cudaError_t launch_sweep(const int8_t* q8, const int8_t* rows, const uint8_t* mask, int qn, int d,
                          long long n_true, float* block_max, float* sims, long long num_blocks,
@@ -254,29 +245,15 @@ cudaError_t launch_sweep(const int8_t* q8, const int8_t* rows, const uint8_t* ma
   using Fmt = typename Cfg::Rows;
   const size_t smem = sizeof(int) * ((size_t)QB * Fmt::query_words(d) + ROWS * STAGE_STRIDE) +
                       sizeof(float) * WARPS * QB;
+  static LaunchCache cache;
   auto kernel = sweep_kernel<Cfg, QB>;
   int grid = 0;
-  cudaError_t err = prepare(kernel, smem);
-  if (err == cudaSuccess) err = grid_for(kernel, smem, num_blocks, &grid);
+  cudaError_t err = cache.prepare(kernel, smem);
+  if (err == cudaSuccess) err = cache.grid_for(kernel, smem, num_blocks, &grid);
   if (err != cudaSuccess) return err;
   kernel<<<grid, THREADS, smem, stream>>>(reinterpret_cast<const int*>(q8),
                                           reinterpret_cast<const int*>(rows), mask, qn, d,
                                           n_true, num_blocks, block_max, sims);
-  return cudaGetLastError();
-}
-
-template <class Fmt, bool MASKED>
-cudaError_t launch_rescan(const int8_t* q8, const int8_t* rows, const uint8_t* mask, int d,
-                          long long n_true, const long long* sub_ids, int n_pairs, int k_tiles,
-                          int k, float* out_v, long long* out_i, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(int) * ((size_t)Fmt::query_words(d) + ROWS * STAGE_STRIDE) + sizeof(float) * ROWS;
-  auto kernel = rescan_kernel<Fmt, MASKED>;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<n_pairs, THREADS, smem, stream>>>(reinterpret_cast<const int*>(q8),
-                                             reinterpret_cast<const int*>(rows), mask, d,
-                                             n_true, sub_ids, k_tiles, k, out_v, out_i);
   return cudaGetLastError();
 }
 
@@ -296,19 +273,18 @@ cudaError_t tilemax(const int8_t* q8, const int8_t* rows, const uint8_t* mask, i
                                    nullptr, num_subs, s);
 }
 
-// Phase 2: sub_ids [qn * k_tiles] int64, query-major; out [qn * k_tiles, k].
+// Phase 2 and the merge: sub_ids [qn, kt] int64 (each query's chosen
+// sub-tiles); scratch [qn * kt * ROWS] 64-bit words; out [qn, k], value desc
+// then row asc.
 template <class Fmt>
-cudaError_t rescan(const int8_t* q8, const int8_t* rows, const uint8_t* mask, int qn, int d,
-                   long long n_true, const long long* sub_ids, int k_tiles, int k, float* out_v,
-                   long long* out_i, cudaStream_t s) {
-  if (qn < 1 || qn > 32 || !Fmt::valid_width(d) || n_true < 1 || k_tiles < 1 || k < 1 ||
-      k > ROWS)
-    return cudaErrorInvalidValue;
-  const int n_pairs = qn * k_tiles;
-  return mask != nullptr ? launch_rescan<Fmt, true>(q8, rows, mask, d, n_true, sub_ids, n_pairs,
-                                                    k_tiles, k, out_v, out_i, s)
-                         : launch_rescan<Fmt, false>(q8, rows, mask, d, n_true, sub_ids, n_pairs,
-                                                     k_tiles, k, out_v, out_i, s);
+cudaError_t rescan_topk(const int8_t* q8, const int8_t* rows, const uint8_t* mask, int qn, int d,
+                        long long n_true, const long long* sub_ids, int kt, int k, Key* scratch,
+                        float* out_v, long long* out_i, cudaStream_t s) {
+  if (!Fmt::valid_width(d) || !valid_rescan(qn, n_true, kt, k)) return cudaErrorInvalidValue;
+  return mask != nullptr ? launch_rescan_topk<Fmt, true>(q8, rows, mask, qn, d, n_true, sub_ids,
+                                                         kt, k, scratch, out_v, out_i, s)
+                         : launch_rescan_topk<Fmt, false>(q8, rows, mask, qn, d, n_true, sub_ids,
+                                                          kt, k, scratch, out_v, out_i, s);
 }
 
 }  // namespace

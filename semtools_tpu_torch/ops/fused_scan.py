@@ -1,19 +1,22 @@
 """Fused cosine scan + exact top-k: wrappers of the CUDA kernels in
 ``csrc/fused_scan.cu`` and their plain PyTorch versions.
 
-Counterpart of ``semtools_tpu/ops/pallas_scan.py``. Three kernels:
+Counterpart of ``semtools_tpu/ops/pallas_scan.py``. The kernels:
 
 - :func:`tilemax` (phase 1 of the two-phase scan, replaces ``_tilemax_kernel``):
   each query's max similarity over every ``SUB_ROWS``-row sub-tile;
-- :func:`rescan` (phase 2, replaces ``_rescan_kernel``): for each (query,
-  chosen sub-tile), that query's exact top-k of the sub-tile;
+- :func:`top_subtiles` (kernel ``select_subtiles``, replaces the
+  ``lax.top_k`` between the phases, XLA in the JAX package; shared with the
+  int8 and int4 scans): each query's best sub-tiles by their maxima;
+- :func:`rescan_topk` (phase 2 and the merge, replaces ``_rescan_kernel`` and
+  ``merge_candidates_sorted``): each query's exact top-k of the rows of its
+  chosen sub-tiles, in one launch;
 - :func:`scan_candidates` (single phase, replaces ``_scan_kernel``): each
-  tile's exact top-k for every query.
+  tile's exact top-k for every query, merged by :func:`merge_candidates`.
 
-The steps between them (selecting each query's sub-tiles, merging the
-candidates) are plain torch, as they are XLA in the JAX package. Ties go to
-the lower corpus index everywhere, which is what makes the two-phase scan
-exact (KERNELS.md "Two-phase kernel").
+So on the card phase 1 is followed by two launches and no torch op until
+the ``[Q, k]`` answer. Ties go to the lower corpus index everywhere, which is
+what makes the two-phase scan exact (KERNELS.md "Two-phase kernel").
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain version (``*_reference``), which the tests hold
@@ -37,6 +40,12 @@ SUB_ROWS = 128
 # _use_pallas until H100 crossovers are measured).
 MAX_QUERIES = 32
 MAX_K = 64
+# Sub-tile maxima per block of the selection kernel (csrc/select.cu); a
+# row of more is cut into chunks whose best go to the query's last block.
+SELECT_CHUNK = 4096
+# Most keys a query's selection holds (csrc/topk.cuh MAX_SELECT): the k of
+# the rescan and the k_tiles of the selection on the card.
+MAX_SELECT = 16384
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = float("-inf")
@@ -76,6 +85,15 @@ def rescan_reference(q, e, n_true: int, sub_ids, k: int):
     sims = torch.einsum("qd,qtsd->qts", q.float(), blocks)
     vals, pos = _sort_desc(sims.masked_fill(~valid, _NEG_INF), k)
     return vals, rows.gather(-1, pos)
+
+
+def rescan_topk_reference(q, e, n_true: int, sub_ids, k: int):
+    """Each query's top-k of the rows of its sub-tiles ``sub_ids`` [Q, kt]
+    -> ([Q, k] sims desc, [Q, k] int64 rows), ties toward the lower row:
+    :func:`rescan_reference` (whole sub-tiles for k above SUB_ROWS) merged
+    by :func:`merge_candidates`."""
+    vals, idx = rescan_reference(q, e, n_true, sub_ids, min(k, SUB_ROWS))
+    return merge_candidates(vals.flatten(1), idx.flatten(1), k)
 
 
 def scan_candidates_reference(q, e, n_true: int, k: int):
@@ -139,24 +157,41 @@ def tilemax(q, e, n_true: int) -> torch.Tensor:
     return out
 
 
-def rescan(q, e, n_true: int, sub_ids, k: int):
-    """Phase 2 (kernel ``fused_rescan``): see :func:`rescan_reference`."""
+def check_subtile_ids(sub_ids, qn: int, k: int, device) -> int:
+    """Raise unless ``sub_ids`` is each of the ``qn`` queries' int64 sub-tile
+    ids on ``device``, enough rows for k; returns the ids per query."""
+    if sub_ids.dim() != 2 or sub_ids.shape[0] != qn:
+        raise ValueError(f"sub_ids {tuple(sub_ids.shape)} do not fit {qn} queries")
+    kt = sub_ids.shape[1]
+    if not (1 <= k <= min(kt * SUB_ROWS, MAX_SELECT)):
+        raise ValueError(f"k={k} outside 1..{min(kt * SUB_ROWS, MAX_SELECT)} for {kt} sub-tiles")
+    if sub_ids.device != device or sub_ids.dtype != torch.int64 or not sub_ids.is_contiguous():
+        raise TypeError("sub_ids must be contiguous int64 on the corpus device")
+    return kt
+
+
+def rescan_scratch(qn: int, kt: int, device) -> torch.Tensor:
+    """The 64-bit candidate keys a rescan_topk launch passes between its
+    blocks (csrc/topk.cuh): at most every row of every chosen sub-tile."""
+    return torch.empty(qn * kt * SUB_ROWS, dtype=torch.int64, device=device)
+
+
+def rescan_topk(q, e, n_true: int, sub_ids, k: int):
+    """Phase 2 and the merge (kernel ``fused_rescan_topk``): see
+    :func:`rescan_topk_reference`."""
     if _on_cpu(q, e):
-        return rescan_reference(q, e, n_true, sub_ids, k)
+        return rescan_topk_reference(q, e, n_true, sub_ids, k)
     _check_n_true(e, n_true)
-    qn, kt = sub_ids.shape
-    if qn != q.shape[0] or not (1 <= k <= SUB_ROWS):
-        raise ValueError(f"sub_ids {tuple(sub_ids.shape)} / k={k} do not fit q {tuple(q.shape)}")
-    if sub_ids.device != e.device or sub_ids.dtype != torch.int64:
-        raise TypeError("sub_ids must be int64 on the corpus device")
-    sub_ids = sub_ids.contiguous()
-    vals = torch.empty((qn, kt, k), dtype=torch.float32, device=e.device)
-    idx = torch.empty((qn, kt, k), dtype=torch.int64, device=e.device)
-    code = kernels.library().semtools_fused_rescan(
+    qn = q.shape[0]
+    kt = check_subtile_ids(sub_ids, qn, k, e.device)
+    vals = torch.empty((qn, k), dtype=torch.float32, device=e.device)
+    idx = torch.empty((qn, k), dtype=torch.int64, device=e.device)
+    code = kernels.library().semtools_fused_rescan_topk(
         q.data_ptr(), e.data_ptr(), _DTYPE_CODES[e.dtype], qn, e.shape[1], n_true,
-        sub_ids.data_ptr(), kt, k, vals.data_ptr(), idx.data_ptr(), _stream(),
+        sub_ids.data_ptr(), kt, k, rescan_scratch(qn, kt, e.device).data_ptr(),
+        vals.data_ptr(), idx.data_ptr(), _stream(),
     )
-    kernels.check(code, "fused_rescan")
+    kernels.check(code, "fused_rescan_topk")
     return vals, idx
 
 
@@ -180,13 +215,39 @@ def scan_candidates(q, e, n_true: int, k: int):
     return vals, idx
 
 
-# -- the steps between (plain torch, as XLA in the JAX package) ---------------
+# -- the sub-tile selection (XLA in the JAX package) and the merge ------------
 
 
 def select_subtiles(sub_max: torch.Tensor, k_tiles: int) -> torch.Tensor:
     """[Q, S] sub-tile maxima -> [Q, k_tiles] int64 ids of each query's best
-    sub-tiles; ties prefer the lower sub-tile (the exactness proof needs it)."""
+    sub-tiles; ties prefer the lower sub-tile (the exactness proof needs it).
+    The plain version of :func:`top_subtiles`."""
     return _sort_desc(sub_max, k_tiles)[1]
+
+
+def top_subtiles(sub_max: torch.Tensor, k_tiles: int) -> torch.Tensor:
+    """The sub-tile selection of every two-phase scan (kernel
+    ``select_subtiles``): see :func:`select_subtiles`."""
+    if sub_max.device.type == "cpu":
+        return select_subtiles(sub_max, k_tiles)
+    if sub_max.device.type != "cuda" or sub_max.dtype != torch.float32 or sub_max.dim() != 2 \
+            or not sub_max.is_contiguous():
+        raise TypeError(f"sub-tile maxima must be a contiguous 2-d f32 CUDA or CPU tensor; "
+                        f"got {sub_max.dtype} {tuple(sub_max.shape)} on {sub_max.device}")
+    qn, s = sub_max.shape
+    if not (1 <= qn <= MAX_QUERIES and 1 <= k_tiles <= min(s, MAX_SELECT)):
+        raise ValueError(f"k_tiles={k_tiles} of {s} sub-tiles for {qn} queries: the kernel "
+                         f"takes 1..{MAX_QUERIES} queries and 1..{MAX_SELECT} sub-tiles")
+    ids = torch.empty((qn, k_tiles), dtype=torch.int64, device=sub_max.device)
+    chunks = -(-s // SELECT_CHUNK)
+    scratch = None if chunks == 1 else torch.empty(
+        qn * chunks * min(k_tiles, SELECT_CHUNK), dtype=torch.int64, device=sub_max.device)
+    code = kernels.library().semtools_select_subtiles(
+        sub_max.data_ptr(), qn, s, k_tiles, SELECT_CHUNK, ids.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), _stream(),
+    )
+    kernels.check(code, "select_subtiles")
+    return ids
 
 
 def merge_candidates(vals: torch.Tensor, idx: torch.Tensor, k: int):
@@ -199,11 +260,10 @@ def merge_candidates(vals: torch.Tensor, idx: torch.Tensor, k: int):
 
 
 def _two_phase_topk(q, e, n_true: int, k: int):
-    """Exact top-k (distances asc) via sub-tile-max sweep + rescan."""
+    """Exact top-k (distances asc) via sub-tile-max sweep, selection and
+    rescan."""
     sub_max = tilemax(q, e, n_true)
-    sub_ids = select_subtiles(sub_max, min(k, sub_max.shape[1]))
-    vals, idx = rescan(q, e, n_true, sub_ids, k)
-    best, ids = merge_candidates(vals.flatten(1), idx.flatten(1), k)
+    best, ids = rescan_topk(q, e, n_true, top_subtiles(sub_max, min(k, sub_max.shape[1])), k)
     return 1.0 - best, ids
 
 

@@ -25,8 +25,9 @@ Two selection paths share the packed corpus:
   noise margin and :func:`extract_above` returns every row at or above it,
   up to a cap;
 - :func:`int4_topk_scan` (exact top-k over the quantized sims; kernels
-  ``int4_tilemax``/``int4_rescan`` and their masked variants, replacing
-  K5a-d): the two-phase scan of :mod:`int8_scan` on packed rows.
+  ``int4_tilemax``, ``select_subtiles`` and ``int4_rescan_topk``, and the
+  masked variants, replacing K5a-d and the XLA steps between and after
+  them): the two-phase scan of :mod:`int8_scan` on packed rows.
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain version (``*_reference``), which the tests hold
@@ -45,11 +46,9 @@ import torch.nn.functional as F
 from semtools_tpu_torch.ops import kernels
 from semtools_tpu_torch.ops.fused_scan import (
     MAX_QUERIES,
-    SUB_ROWS,
     _sort_desc,
     _stream,
-    merge_candidates,
-    select_subtiles,
+    top_subtiles,
 )
 from semtools_tpu_torch.ops import int8_scan
 from semtools_tpu_torch.ops.int8_scan import (
@@ -58,7 +57,7 @@ from semtools_tpu_torch.ops.int8_scan import (
     _keep_rows,
     _kernel_name,
     _on_cpu,
-    launch_rescan,
+    launch_rescan_topk,
     launch_tilemax,
     quantize_global,
 )
@@ -167,6 +166,13 @@ def rescan_reference(q8, p4, n_true: int, sub_ids, k: int, mask=None):
     return int8_scan.rescan_reference(q8, p4, n_true, sub_ids, k, mask, widen=unpack_f32)
 
 
+def rescan_topk_reference(q8, p4, n_true: int, sub_ids, k: int, mask=None):
+    """Each query's top-k biased sims of the rows of its sub-tiles ``sub_ids``
+    [Q, kt] -> ([Q, k] sims desc, [Q, k] int64 rows); for k above SUB_ROWS
+    every sub-tile is taken whole."""
+    return int8_scan.rescan_topk_reference(q8, p4, n_true, sub_ids, k, mask, widen=unpack_f32)
+
+
 def _num_sims_blocks(n_true: int) -> int:
     return -(-n_true // SIMS_ROWS)
 
@@ -196,11 +202,12 @@ def tilemax(q8, p4, n_true: int, mask=None) -> torch.Tensor:
     return launch_tilemax("int4", q8, p4, n_true, mask)
 
 
-def rescan(q8, p4, n_true: int, sub_ids, k: int, mask=None):
-    """Phase 2 (kernel ``int4_rescan[_masked]``): see :func:`rescan_reference`."""
+def rescan_topk(q8, p4, n_true: int, sub_ids, k: int, mask=None):
+    """Phase 2 and the merge (kernel ``int4_rescan_topk[_masked]``): see
+    :func:`rescan_topk_reference`."""
     if _on_cpu(q8, p4, mask, "int4"):
-        return rescan_reference(q8, p4, n_true, sub_ids, k, mask)
-    return launch_rescan("int4", q8, p4, n_true, sub_ids, k, mask)
+        return rescan_topk_reference(q8, p4, n_true, sub_ids, k, mask)
+    return launch_rescan_topk("int4", q8, p4, n_true, sub_ids, k, mask)
 
 
 def sims_max(q8, p4, n_true: int, mask=None, out=None):
@@ -336,9 +343,7 @@ def int4_two_phase(q8, p4, n_true: int, k: int, mask=None):
     than k rows are kept. For k above SUB_ROWS every chosen sub-tile is taken
     whole, which keeps it exact."""
     sub_max = tilemax(q8, p4, n_true, mask)
-    sub_ids = select_subtiles(sub_max, min(k, sub_max.shape[1]))
-    vals, idx = rescan(q8, p4, n_true, sub_ids, min(k, SUB_ROWS), mask)
-    return merge_candidates(vals.flatten(1), idx.flatten(1), k)
+    return rescan_topk(q8, p4, n_true, top_subtiles(sub_max, min(k, sub_max.shape[1])), k, mask)
 
 
 def int4_topk_scan(

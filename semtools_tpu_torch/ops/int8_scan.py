@@ -12,15 +12,16 @@ The scan is the two-phase structure of :mod:`fused_scan` over int8 rows:
 - :func:`tilemax` (phase 1, replaces ``_tilemax_kernel`` /
   ``_tilemax_kernel_masked``): each query's max integer sim over every
   ``SUB_ROWS``-row sub-tile;
-- :func:`rescan` (phase 2, replaces ``_rescan_kernel`` /
-  ``_rescan_kernel_masked``): each query's exact top-k inside each of its
-  chosen sub-tiles.
+- :func:`fused_scan.top_subtiles` (the format-independent selection kernel,
+  replacing the ``lax.top_k`` between the phases): each query's best
+  sub-tiles;
+- :func:`rescan_topk` (phase 2 and the merge, replaces ``_rescan_kernel`` /
+  ``_rescan_kernel_masked`` and ``merge_candidates_sorted``): each query's
+  exact top-k of the rows of its chosen sub-tiles, in one launch.
 
 With ``mask`` (a uint8/bool keep vector over the rows), rows where it is 0
 read as -inf in both phases: path-subset serving on the store's slot
-corpus. The steps between the phases are :func:`fused_scan.select_subtiles`
-and :func:`fused_scan.merge_candidates` (plain torch, as they are XLA in the
-JAX package); ties go to the lower corpus index everywhere.
+corpus. Ties go to the lower corpus index everywhere.
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain version (``*_reference``), which the tests hold
@@ -44,8 +45,10 @@ from semtools_tpu_torch.ops.fused_scan import (
     _num_blocks,
     _sort_desc,
     _stream,
+    check_subtile_ids,
     merge_candidates,
-    select_subtiles,
+    rescan_scratch,
+    top_subtiles,
 )
 
 _NEG_INF = float("-inf")
@@ -158,6 +161,17 @@ def rescan_reference(q8, e8, n_true: int, sub_ids, k: int, mask=None, *, widen=_
     return vals, rows.gather(-1, pos)
 
 
+def rescan_topk_reference(q8, e8, n_true: int, sub_ids, k: int, mask=None, *,
+                          widen=_widen_int8):
+    """Each query's top-k integer sims of the rows of its sub-tiles
+    ``sub_ids`` [Q, kt] -> ([Q, k] sims desc, [Q, k] int64 rows), ties toward
+    the lower row, -inf filler (rows not kept, lowest first) when fewer than
+    k are kept: :func:`rescan_reference` (whole sub-tiles for k above
+    SUB_ROWS) merged by :func:`fused_scan.merge_candidates`."""
+    vals, idx = rescan_reference(q8, e8, n_true, sub_ids, min(k, SUB_ROWS), mask, widen=widen)
+    return merge_candidates(vals.flatten(1), idx.flatten(1), k)
+
+
 # -- kernel wrappers ------------------------------------------------------------
 
 
@@ -215,23 +229,20 @@ def launch_tilemax(fmt: str, q8, rows, n_true: int, mask=None) -> torch.Tensor:
     return out
 
 
-def launch_rescan(fmt: str, q8, rows, n_true: int, sub_ids, k: int, mask=None):
-    """Phase 2 on the card: kernel ``{fmt}_rescan[_masked]``."""
+def launch_rescan_topk(fmt: str, q8, rows, n_true: int, sub_ids, k: int, mask=None):
+    """Phase 2 and the merge on the card: kernel ``{fmt}_rescan_topk[_masked]``."""
     _check_n_true(rows, mask, n_true)
-    qn, kt = sub_ids.shape
-    if qn != q8.shape[0] or not (1 <= k <= SUB_ROWS):
-        raise ValueError(f"sub_ids {tuple(sub_ids.shape)} / k={k} do not fit q8 {tuple(q8.shape)}")
-    if sub_ids.device != rows.device or sub_ids.dtype != torch.int64:
-        raise TypeError("sub_ids must be int64 on the corpus device")
-    sub_ids = sub_ids.contiguous()
-    vals = torch.empty((qn, kt, k), dtype=torch.float32, device=rows.device)
-    idx = torch.empty((qn, kt, k), dtype=torch.int64, device=rows.device)
-    code = getattr(kernels.library(), f"semtools_{fmt}_rescan")(
+    qn = q8.shape[0]
+    kt = check_subtile_ids(sub_ids, qn, k, rows.device)
+    vals = torch.empty((qn, k), dtype=torch.float32, device=rows.device)
+    idx = torch.empty((qn, k), dtype=torch.int64, device=rows.device)
+    code = getattr(kernels.library(), f"semtools_{fmt}_rescan_topk")(
         q8.data_ptr(), rows.data_ptr(), None if mask is None else mask.data_ptr(),
-        qn, q8.shape[1], n_true, sub_ids.data_ptr(), kt, k, vals.data_ptr(),
-        idx.data_ptr(), _stream(),
+        qn, q8.shape[1], n_true, sub_ids.data_ptr(), kt, k,
+        rescan_scratch(qn, kt, rows.device).data_ptr(), vals.data_ptr(), idx.data_ptr(),
+        _stream(),
     )
-    kernels.check(code, _kernel_name(fmt, "rescan", mask))
+    kernels.check(code, _kernel_name(fmt, "rescan_topk", mask))
     return vals, idx
 
 
@@ -243,21 +254,19 @@ def tilemax(q8, e8, n_true: int, mask=None) -> torch.Tensor:
     return launch_tilemax("int8", q8, e8, n_true, mask)
 
 
-def rescan(q8, e8, n_true: int, sub_ids, k: int, mask=None):
-    """Phase 2 (kernel ``int8_rescan``, or ``int8_rescan_masked`` with a
-    mask): see :func:`rescan_reference`."""
+def rescan_topk(q8, e8, n_true: int, sub_ids, k: int, mask=None):
+    """Phase 2 and the merge (kernel ``int8_rescan_topk``, or
+    ``int8_rescan_topk_masked`` with a mask): see :func:`rescan_topk_reference`."""
     if _on_cpu(q8, e8, mask):
-        return rescan_reference(q8, e8, n_true, sub_ids, k, mask)
-    return launch_rescan("int8", q8, e8, n_true, sub_ids, k, mask)
+        return rescan_topk_reference(q8, e8, n_true, sub_ids, k, mask)
+    return launch_rescan_topk("int8", q8, e8, n_true, sub_ids, k, mask)
 
 
 def int8_two_phase(q8, e8, n_true: int, k: int, mask=None):
     """Exact top-k integer sims: ([Q, k] sims desc, [Q, k] int64 rows),
     ties toward the lower row; -inf filler when fewer than k rows are kept."""
     sub_max = tilemax(q8, e8, n_true, mask)
-    sub_ids = select_subtiles(sub_max, min(k, sub_max.shape[1]))
-    vals, idx = rescan(q8, e8, n_true, sub_ids, k, mask)
-    return merge_candidates(vals.flatten(1), idx.flatten(1), k)
+    return rescan_topk(q8, e8, n_true, top_subtiles(sub_max, min(k, sub_max.shape[1])), k, mask)
 
 
 def int8_topk_scan(

@@ -34,8 +34,8 @@ from semtools_tpu_torch.utils.filelock import lock_exclusive, unlock
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
-SOURCES = ("fused_scan.cu", "int8_scan.cu", "int4_scan.cu")
-HEADERS = ("common.cuh", "int_scan.cuh")
+SOURCES = ("fused_scan.cu", "int8_scan.cu", "int4_scan.cu", "select.cu")
+HEADERS = ("common.cuh", "int_scan.cuh", "topk.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -43,10 +43,10 @@ NVCC_FLAGS = (
 )
 
 KERNELS = (
-    "fused_tilemax", "fused_rescan", "fused_scan_candidates",
-    "int8_tilemax", "int8_rescan", "int8_tilemax_masked", "int8_rescan_masked",
+    "fused_tilemax", "fused_rescan_topk", "fused_scan_candidates", "select_subtiles",
+    "int8_tilemax", "int8_rescan_topk", "int8_tilemax_masked", "int8_rescan_topk_masked",
     "int4_sims_max", "int4_sims_max_masked",
-    "int4_tilemax", "int4_rescan", "int4_tilemax_masked", "int4_rescan_masked",
+    "int4_tilemax", "int4_rescan_topk", "int4_tilemax_masked", "int4_rescan_topk_masked",
 )
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -151,19 +151,23 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.semtools_scan_rows.argtypes = []
     lib.semtools_cuda_error_string.restype = ctypes.c_char_p
     lib.semtools_cuda_error_string.argtypes = [i32]
+    lib.semtools_empty_launch.restype = i32
+    lib.semtools_empty_launch.argtypes = [p]
     lib.semtools_fused_tilemax.restype = i32
     lib.semtools_fused_tilemax.argtypes = [p, p, i32, i32, i32, i64, p, i64, p]
-    lib.semtools_fused_rescan.restype = i32
-    lib.semtools_fused_rescan.argtypes = [p, p, i32, i32, i32, i64, p, i32, i32, p, p, p]
+    lib.semtools_fused_rescan_topk.restype = i32
+    lib.semtools_fused_rescan_topk.argtypes = [p, p, i32, i32, i32, i64, p, i32, i32, p, p, p, p]
+    lib.semtools_select_subtiles.restype = i32
+    lib.semtools_select_subtiles.argtypes = [p, i32, i64, i32, i32, p, p, p]
     lib.semtools_fused_scan_candidates.restype = i32
     lib.semtools_fused_scan_candidates.argtypes = [p, p, i32, i32, i32, i64, i32, p, p, i64, p]
     for fmt in ("int8", "int4"):
         tilemax = getattr(lib, f"semtools_{fmt}_tilemax")
         tilemax.restype = i32
         tilemax.argtypes = [p, p, p, i32, i32, i64, p, i64, p]
-        rescan = getattr(lib, f"semtools_{fmt}_rescan")
+        rescan = getattr(lib, f"semtools_{fmt}_rescan_topk")
         rescan.restype = i32
-        rescan.argtypes = [p, p, p, i32, i32, i64, p, i32, i32, p, p, p]
+        rescan.argtypes = [p, p, p, i32, i32, i64, p, i32, i32, p, p, p, p]
     lib.semtools_int4_sims_rows.restype = i32
     lib.semtools_int4_sims_rows.argtypes = []
     lib.semtools_int4_sims_max.restype = i32

@@ -113,13 +113,20 @@ def test_tilemax_and_rescan_plain_versions():
     # sit in sub-tiles 0, 1 and 2 for query 0)
     assert ids[0].tolist() == [0, 1, 2]
     k = 4
-    vals, idx = fs.rescan(torch.from_numpy(q), torch.from_numpy(e), nt, ids, k)
+    vals, idx = fs.rescan_reference(torch.from_numpy(q), torch.from_numpy(e), nt, ids, k)
+    best, best_idx = fs.rescan_topk(torch.from_numpy(q), torch.from_numpy(e), nt, ids, k)
     for j in range(4):
+        chosen = []
         for t, sid in enumerate(ids[j].tolist()):
             rows = np.arange(sid * fs.SUB_ROWS, min((sid + 1) * fs.SUB_ROWS, nt))
+            chosen.extend(rows)
             order = sorted(rows, key=lambda r: (-padded[j, r], r))[:k]
             assert idx[j, t].tolist() == order
             np.testing.assert_allclose(vals[j, t].numpy(), padded[j, order], atol=ATOL)
+        # the merged top-k over every row of the chosen sub-tiles
+        order = sorted(chosen, key=lambda r: (-padded[j, r], r))[:k]
+        assert best_idx[j].tolist() == order
+        np.testing.assert_allclose(best[j].numpy(), padded[j, order], atol=ATOL)
 
 
 @pytest.mark.parametrize("n,qn,k", [

@@ -70,18 +70,69 @@ def test_kernels_match_plain_versions(cuda_device, dtype, n, n_true, qn, k):
 
     ref_max = fs.tilemax_reference(q, e, n_true)
     torch.testing.assert_close(fs.tilemax(q, e, n_true), ref_max, atol=ATOL, rtol=0)
-    ids = fs.select_subtiles(ref_max, min(k, ref_max.shape[1]))
-    _assert_ranks(*fs.rescan(q, e, n_true, ids, k),
-                  *fs.rescan_reference(q, e, n_true, ids, k + 1))
+    kt = min(k, ref_max.shape[1])
+    ids = fs.top_subtiles(ref_max, kt)
+    assert torch.equal(ids, fs.select_subtiles(ref_max, kt))
+    _assert_ranks(*fs.rescan_topk(q, e, n_true, ids, k),
+                  *fs.rescan_topk_reference(q, e, n_true, ids, k + 1))
     _assert_ranks(*fs.scan_candidates(q, e, n_true, k),
                   *fs.scan_candidates_reference(q, e, n_true, k + 1))
     after = kernels.launch_counts()
-    assert all(after[name] == before[name] + 1
-               for name in ("fused_tilemax", "fused_rescan", "fused_scan_candidates"))
+    assert all(after[name] == before[name] + 1 for name in (
+        "fused_tilemax", "select_subtiles", "fused_rescan_topk", "fused_scan_candidates"))
 
     d, i = fs.fused_topk_scan(q, e, k, n_true=n_true)
     want = dups[: min(k, len(dups))]
     assert i[0, : len(want)].tolist() == want
+
+
+def _tied_maxima(gen, qn, s, device):
+    """Sub-tile maxima as phase 1 gives them at s sub-tiles, with each
+    query's best value in 12 sub-tiles, integer-valued rows and -inf runs."""
+    m = torch.randn((qn, s), generator=gen)
+    m[:, torch.randperm(s, generator=gen)[:12]] = m.max() + 1
+    m[qn // 2] = m[qn // 2].round()
+    m[:, 100:900] = float("-inf")
+    return m.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qn,s,kt", [
+    (1, 15_625, 10),    # 2M rows of 128, chip_smoke.py phase 2
+    (8, 78_125, 10),    # 10M rows, phases 3-4
+    (32, 78_125, 64),
+    (40 - 32, 78_125, 200),  # the second launch of int4's Q = 40, k = 200
+    (3, 3000, 3000),    # every sub-tile
+])
+def test_selection_kernel_matches_its_plain_version(cuda_device, qn, s, kt):
+    m = _tied_maxima(torch.Generator().manual_seed(s + kt), qn, s, cuda_device)
+    before = kernels.launch_counts()["select_subtiles"]
+    got = fs.top_subtiles(m, kt)
+    assert torch.equal(got, fs.select_subtiles(m, kt))
+    assert kernels.launch_counts()["select_subtiles"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qn,k", [(1, 10), (8, 10), (32, 64), (8, 128)])
+def test_rescan_topk_at_chip_smoke_shapes(cuda_device, dtype, qn, k):
+    """2M x 256 rows (chip_smoke.py phase 2) with duplicates of query 0's
+    best row in several sub-tiles: the kernel's [Q, k] against the plain
+    rescan and merge on the same sub-tiles, ranks as above."""
+    gen = torch.Generator().manual_seed(qn + k)
+    n, n_true = 2_000_000, 1_999_223
+    e = _unit(gen, n, 256, cuda_device)
+    dups = [5, 127, 128, 70_000, n_true - 1]
+    e[dups[1:]] = e[5].clone()
+    e = e.to(dtype)
+    q = _unit(gen, qn, 256, cuda_device)
+    q[0] = e[5].float()
+    sub_max = fs.tilemax(q, e, n_true)
+    ids = fs.top_subtiles(sub_max, k)
+    _assert_ranks(*fs.rescan_topk(q, e, n_true, ids, k),
+                  *fs.rescan_topk_reference(q, e, n_true, ids, k + 1))
+    d, i = fs._two_phase_topk(q, e, n_true, min(k, 5))
+    assert i[0].tolist()[:5] == dups[: min(k, 5)]
 
 
 @pytest.mark.cuda

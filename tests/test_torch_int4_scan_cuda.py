@@ -21,7 +21,7 @@ import torch
 
 from semtools_tpu_torch.ops import int4_scan as i4
 from semtools_tpu_torch.ops import kernels
-from semtools_tpu_torch.ops.fused_scan import select_subtiles
+from semtools_tpu_torch.ops.fused_scan import select_subtiles, top_subtiles
 
 
 @pytest.fixture()
@@ -75,17 +75,17 @@ def test_kernels_match_plain_versions(cuda_device, n, n_true, qn, k, d, mask_kin
     assert torch.equal(sims, want_sims) and torch.equal(bmax, want_max)
     sub_max = i4.tilemax(q8, p4, n_true, mask)
     assert torch.equal(sub_max, i4.tilemax_reference(q8, p4, n_true, mask))
-    ids = select_subtiles(sub_max, min(k, sub_max.shape[1]))
-    kr = min(k, 128)
-    v, i = i4.rescan(q8, p4, n_true, ids, kr, mask)
-    vr, ir = i4.rescan_reference(q8, p4, n_true, ids, kr, mask)
-    assert torch.equal(v, vr)
-    fin = torch.isfinite(vr)
-    assert torch.equal(i[fin], ir[fin])
+    kt = min(k, sub_max.shape[1])
+    ids = top_subtiles(sub_max, kt)
+    assert torch.equal(ids, select_subtiles(sub_max, kt))
+    v, i = i4.rescan_topk(q8, p4, n_true, ids, k, mask)
+    vr, ir = i4.rescan_topk_reference(q8, p4, n_true, ids, k, mask)
+    assert torch.equal(v, vr) and torch.equal(i, ir)
     torch.cuda.synchronize()
     after = kernels.launch_counts()
-    for name in ("sims_max", "tilemax", "rescan"):
+    for name in ("sims_max", "tilemax", "rescan_topk"):
         assert after[f"int4_{name}{sfx}"] == before[f"int4_{name}{sfx}"] + 1
+    assert after["select_subtiles"] == before["select_subtiles"] + 1
     if mask is None:
         _, idx = i4.int4_topk_scan(q8.float(), p4, 1.0, k, n_true=n_true)
         assert idx[0, :3].tolist() == [3, 5, 127]
@@ -109,6 +109,25 @@ def test_deep_candidates_match_the_plain_path(cuda_device, monkeypatch, cap):
         assert got.shape == want.shape
         for g, w in zip(got.cpu().numpy(), want.numpy()):
             assert set(g[g < 5900].tolist()) == set(w[w < 5900].tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_kind", [None, "random", "few"])
+@pytest.mark.parametrize("qn,k", [(8, 10), (32, 200)])
+def test_phase2_at_chip_smoke_shapes(cuda_device, qn, k, mask_kind):
+    """2M x 256 packed rows (chip_smoke.py phase 4), k up to 200 (whole
+    sub-tiles taken): the selection and the rescan-and-merge kernels equal
+    their plain versions bit for bit."""
+    gen = torch.Generator().manual_seed(qn * k)
+    n, n_true = 2_000_000, 1_999_223
+    q8, p4 = _data(gen, n, qn, cuda_device)
+    mask = _mask(mask_kind, n, gen, cuda_device)
+    sub_max = i4.tilemax(q8, p4, n_true, mask)
+    ids = top_subtiles(sub_max, k)
+    assert torch.equal(ids, select_subtiles(sub_max, k))
+    v, i = i4.rescan_topk(q8, p4, n_true, ids, k, mask)
+    vr, ir = i4.rescan_topk_reference(q8, p4, n_true, ids, k, mask)
+    assert torch.equal(v, vr) and torch.equal(i, ir)
 
 
 @pytest.mark.cuda

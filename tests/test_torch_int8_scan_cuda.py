@@ -18,7 +18,7 @@ import torch
 
 from semtools_tpu_torch.ops import int8_scan as i8
 from semtools_tpu_torch.ops import kernels
-from semtools_tpu_torch.ops.fused_scan import select_subtiles
+from semtools_tpu_torch.ops.fused_scan import select_subtiles, top_subtiles
 
 
 @pytest.fixture()
@@ -70,18 +70,47 @@ def test_kernels_match_plain_versions(cuda_device, n, n_true, qn, k, mask_kind):
     before = kernels.launch_counts()
     sub_max = i8.tilemax(q8, e8, n_true, mask)
     assert torch.equal(sub_max, i8.tilemax_reference(q8, e8, n_true, mask))
-    ids = select_subtiles(sub_max, min(k, sub_max.shape[1]))
-    v, i = i8.rescan(q8, e8, n_true, ids, k, mask)
-    vr, ir = i8.rescan_reference(q8, e8, n_true, ids, k, mask)
+    ids = top_subtiles(sub_max, min(k, sub_max.shape[1]))
+    assert torch.equal(ids, select_subtiles(sub_max, min(k, sub_max.shape[1])))
+    v, i = i8.rescan_topk(q8, e8, n_true, ids, k, mask)
+    vr, ir = i8.rescan_topk_reference(q8, e8, n_true, ids, k, mask)
     _assert_equal(v, i, vr, ir)
+    assert torch.equal(i, ir)  # -inf filler too: the rows not kept, lowest first
     torch.cuda.synchronize()
     suffix = "" if mask is None else "_masked"
     after = kernels.launch_counts()
     assert after[f"int8_tilemax{suffix}"] == before[f"int8_tilemax{suffix}"] + 1
-    assert after[f"int8_rescan{suffix}"] == before[f"int8_rescan{suffix}"] + 1
+    assert after[f"int8_rescan_topk{suffix}"] == before[f"int8_rescan_topk{suffix}"] + 1
+    assert after["select_subtiles"] == before["select_subtiles"] + 1
     d, idx = i8.int8_topk_scan(q8.float(), e8, 1.0, k, n_true=n_true, mask=mask)
     if mask is None and k >= 3:
         assert idx[0, :3].tolist() == [3, 5, 127]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_kind", [None, "random", "few"])
+@pytest.mark.parametrize("qn,k", [(1, 3), (8, 10), (32, 64)])
+def test_phase2_at_chip_smoke_shapes(cuda_device, qn, k, mask_kind):
+    """2M x 256 int8 rows (chip_smoke.py phase 3): the selection and the
+    rescan-and-merge kernels equal their plain versions bit for bit, and the
+    whole two-phase scan runs phase 1 and then exactly those two launches."""
+    gen = torch.Generator().manual_seed(qn * k)
+    n, n_true = 2_000_000, 1_999_223
+    q8, e8 = _data(gen, n, qn, cuda_device)
+    mask = _mask(mask_kind, n, k, gen, cuda_device)
+    sub_max = i8.tilemax(q8, e8, n_true, mask)
+    ids = top_subtiles(sub_max, k)
+    assert torch.equal(ids, select_subtiles(sub_max, k))
+    v, i = i8.rescan_topk(q8, e8, n_true, ids, k, mask)
+    vr, ir = i8.rescan_topk_reference(q8, e8, n_true, ids, k, mask)
+    assert torch.equal(v, vr) and torch.equal(i, ir)
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()
+    sims, idx = i8.int8_two_phase(q8, e8, n_true, k, mask)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert sum(after.values()) - sum(before.values()) == 3
+    assert torch.equal(sims, vr) and torch.equal(idx, ir)
 
 
 @pytest.mark.cuda
