@@ -59,9 +59,24 @@ exits non-zero without them. Phases:
    (the masked sweep) and a ``-m`` threshold search; and without that
    variable, a 200 MB device budget, where the int8 corpus (256 MB) does not
    fit and the int4 one does: ``workspace status`` must name
-   ``int4-mxu-scan`` and a search is served from it.
+   ``int4-mxu-scan`` and a search is served from it;
+7. workspace residency, on the same workspace: the int8 and int4 corpora
+   built on the card (``SEMTOOLS_TPU_BUILD=device``, as the cold search's
+   ``auto`` does) and on the host must be byte-equal; the one-line edit of
+   phase 6 must be served by a patch (no ``slot_corpus_build`` stage, one
+   row and its index uploaded); budgets of 100 MB and 50 MB pick the
+   reduced-64d and reduced-32d rungs (``workspace status``), whose top-k and
+   ``-m`` searches must equal the plain scan; ``workspace compact -j`` must
+   reclaim the 2,000 slots the edit freed, and the next search must catch up
+   by the patch's moves (nothing uploaded); then the daemon, served from a
+   thread of this process (``daemon.serve``, warm-up included, under its own
+   ``SEMTOOLS_TPU_DAEMON_DIR``): a search forwarded from a child process
+   against the same search in a child that does not forward, 8 concurrent
+   child clients (one coalesced scan or a few; each output equal to its
+   direct run; the int8 kernels launched from the daemon's threads), an
+   edit then a forwarded search (patched, not rebuilt), and ``stop``.
 
-Phases 5 and 6 check their hits against a plain exact scan of the same
+Phases 5-7 check their hits against a plain exact scan of the same
 embeddings on the card (tolerance as in phase 2), and every kernel of each
 path must show launches in that path's run (counts reset just before it).
 The launch floor (an empty kernel through the kernels' ctypes path) is
@@ -116,6 +131,10 @@ K5 = ("int4_tilemax", "select_subtiles", "int4_rescan_topk", "int4_tilemax_maske
       "int4_rescan_topk_masked")
 K6 = ("int4_sims_max", "int4_sims_max_masked")
 INT4_BUDGET = 209_715_200  # bytes: under the int8 corpus of 1M x 256, over the int4 one
+# bytes: between the reduced-64d corpus (65 B a slot, 1.002M slots) and the
+# int4 one (128 B), then between the reduced-32d (33 B) and the 64d one
+REDUCED_BUDGETS = (("reduced64d", 104_857_600), ("reduced32d", 52_428_800))
+INT8_PATH = ("int8_tilemax", "select_subtiles", "int8_rescan_topk")
 E_SCALE = 1.0 / 7.0  # the packed corpora of phase 4 are random bytes: any scale serves
 # Data-sheet peaks of one H100 SXM at 700 W: HBM bytes/s, f32 FLOP/s on the
 # CUDA cores, int8 tensor-core OP/s.
@@ -818,8 +837,20 @@ def run_cli(argv):
     if rc != 0:
         raise AssertionError(f"semtools {' '.join(argv[:3])}... exited {rc}: "
                              f"{err.getvalue()[-2000:]}")
-    stages = ", ".join(f"{name} {secs * 1e3:.1f} ms" for name, secs, _ in tracing.timings())
-    return out.getvalue(), err.getvalue(), wall, stages
+    return out.getvalue(), err.getvalue(), wall, stage_text()
+
+
+def stage_text() -> str:
+    """The stages recorded in this process since the last tracing reset."""
+    from semtools_tpu_torch.utils import tracing
+
+    return ", ".join(f"{name} {secs * 1e3:.1f} ms" for name, secs, _ in tracing.timings())
+
+
+def exit_stages(err: str) -> str:
+    """The stage table a child process printed at exit (SEMTOOLS_TPU_TIMINGS)."""
+    rows = re.findall(r"^\s+(\w+)\s+([\d.]+) ms", err.split("-- semtools timings --")[-1], re.M)
+    return ", ".join(f"{name} {ms} ms" for name, ms in rows)
 
 
 def check_hits(results, queries, model, corpus, starts, files, k, row_of=None):
@@ -946,19 +977,27 @@ def workspace_phase(files, qfile, model, corpus, starts):
                         raise AssertionError("warm search -w traced no device work")
                     log(f"workspace: warm search -w under torch.profiler: device busy "
                         f"{busy:.3f} ms of {wall_ms:.1f} ms wall ({100 * busy / wall_ms:.2f}%)")
+            build_compare(model.device)
 
-            # a one-line edit: the rewrite re-embeds one line and reuses the rest
+            # a one-line edit: the rewrite re-embeds one line and reuses the
+            # rest; the cached int8 corpus is patched: one row uploaded
+            from semtools_tpu_torch.store import patch_cache
+
             edit_file, edit_line = 7, 100
             lines = Path(files[edit_file]).read_text().split("\n")
             lines[edit_line] = "quick brown fox crossing the river at night"
             Path(files[edit_file]).write_text("\n".join(lines))
+            shipped = patch_cache.uploaded_bytes()
             out, err, wall, stages = run_cli(
                 ["search", QUERIES[1], *files, "-w", "smoke", "--top-k", "10", "-j"])
+            shipped = patch_cache.uploaded_bytes() - shipped
             if "embedded 1 unique new lines" not in err:
                 raise AssertionError(f"workspace (edit): no reuse line in {err[-500:]!r}")
+            patched_by(stage_seconds(), "workspace (edit)", shipped, 4 * (D + 8))
             hits["edit"] = out
             log(f"workspace: search -w (one-line edit): {wall:.3f} s wall; stages: {stages}; "
-                f"{[ln.strip() for ln in err.splitlines() if 'reused' in ln][0]}")
+                f"{[ln.strip() for ln in err.splitlines() if 'reused' in ln][0]}; "
+                f"{shipped} bytes uploaded")
             launches = launches_of([n for n in REPLACES if n.startswith("int8") or n in (
                 "fused_tilemax", "select_subtiles", "fused_rescan_topk")], "workspace")
 
@@ -975,6 +1014,12 @@ def workspace_phase(files, qfile, model, corpus, starts):
             ref_d, _ = _topk_chunk(model.encode(QUERIES[3:4]), edited, 0, edited.shape[0], 10)
             thr = float(ref_d[0, 4] + ref_d[0, 5]) / 2  # five hits below it
             hits4, launches4 = int4_workspace_steps(files, qfile, subset, thr)
+            hits.update(reduced_steps(files, thr))
+            hits["compact"] = compact_steps(files)
+            daemon_hits, daemon_edit = daemon_steps(files)
+            edited2 = edited.clone()
+            edited2[int(starts[daemon_edit[0]]) + daemon_edit[1]] = model.encode(
+                [daemon_edit[2]])[0]
         finally:
             if old_home is None:
                 os.environ.pop("HOME", None)
@@ -1008,7 +1053,252 @@ def workspace_phase(files, qfile, model, corpus, starts):
     err = max(err, check_hits(below, QUERIES[3:4], model, edited, starts, files, 10))
     log(f"workspace: int4-tier hits equal the plain scan of the same embeddings "
         f"(max |d| err {err:.3g})")
+
+    one = lambda label: [json.loads(hits[label])["results"]]  # noqa: E731
+    err = 0.0
+    for rung, _ in REDUCED_BUDGETS:
+        for label in (f"{rung} first", f"{rung} warm"):
+            err = max(err, check_hits(one(label), QUERIES[:1], model, edited, starts, files, 10))
+        below = one(f"{rung} -m")
+        if len(below[0]) != int((ref_d[0] < thr).sum()):
+            raise AssertionError(f"{rung} -m {thr}: {len(below[0])} hits, the plain scan has "
+                                 f"{int((ref_d[0] < thr).sum())} below it")
+        err = max(err, check_hits(below, QUERIES[3:4], model, edited, starts, files, 10))
+    log(f"workspace: reduced-rung hits equal the plain scan (max |d| err {err:.3g})")
+    err = check_hits(one("compact"), QUERIES[1:2], model, edited, starts, files, 10)
+    err = max(err, check_hits([json.loads(daemon_hits["forwarded"])["results"]], QUERIES[:1],
+                              model, edited, starts, files, 10))
+    err = max(err, check_hits([json.loads(o)["results"] for o in daemon_hits["clients"]],
+                              QUERIES, model, edited, starts, files, 10))
+    err = max(err, check_hits([json.loads(daemon_hits["edit"])["results"]], QUERIES[1:2], model,
+                              edited2, starts, files, 10))
+    log(f"workspace: hits after compact and through the daemon equal the plain scan "
+        f"(max |d| err {err:.3g})")
     return launches, launches4
+
+
+def stage_seconds() -> dict:
+    """{stage: seconds} recorded since the last tracing reset."""
+    from semtools_tpu_torch.utils import tracing
+
+    return {name: secs for name, secs, _ in tracing.timings()}
+
+
+def patched_by(stages: dict, what: str, shipped: int, most: int) -> None:
+    """The cached corpus caught up by a patch (no build) that uploaded at most
+    ``most`` bytes."""
+    if "slot_corpus_build" in stages or "slot_corpus_patch" not in stages:
+        raise AssertionError(f"{what}: stages {sorted(stages)}: not served by a patch")
+    if shipped > most:
+        raise AssertionError(f"{what}: the patch uploaded {shipped} bytes (at most {most})")
+
+
+def build_compare(dev) -> None:
+    """The workspace's int8 and int4 corpora built on the card
+    (``SEMTOOLS_TPU_BUILD=device``) and on the host: the tensors byte-equal,
+    the same scale and row-L1 bound; both build times."""
+    import torch
+
+    from semtools_tpu_torch.store import Workspace, patch_cache
+    from semtools_tpu_torch.store.store import Store
+
+    with Store(Workspace.open("smoke").config.root_dir, device=dev) as store:
+        gen = store.generation()
+        for kind in ("int8", "int4"):
+            built, secs = {}, {}
+            for where in ("device", "host"):
+                os.environ["SEMTOOLS_TPU_BUILD"] = where
+                try:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    built[where] = patch_cache._build(store, kind, dev, None, gen)
+                    torch.cuda.synchronize()
+                    secs[where] = time.perf_counter() - t0
+                finally:
+                    os.environ.pop("SEMTOOLS_TPU_BUILD")
+            card, host = built["device"], built["host"]
+            if not (torch.equal(card.corpus, host.corpus) and card.scale == host.scale
+                    and card.max_row_int_l1 == host.max_row_int_l1):
+                raise AssertionError(f"{kind}: the corpus built on the card differs from the "
+                                     f"host build")
+            log(f"workspace: {kind} slot corpus ({card.capacity} slots, {card.device_nbytes} "
+                f"bytes) built on the card in {secs['device'] * 1e3:.1f} ms and on the host in "
+                f"{secs['host'] * 1e3:.1f} ms (slot_corpus_build): byte-equal")
+            del built, card, host
+    torch.cuda.empty_cache()
+
+
+def reduced_steps(files, thr):
+    """The reduced rungs, picked by device budgets under the int4 corpus:
+    ``workspace status`` names each; a first search (the projected corpus
+    built on the card), a warm top-k and a ``-m`` search. The rungs score
+    through the plain scan: their launch counts (reset just before) are
+    logged, and no kernel of the port is expected."""
+    from semtools_tpu_torch.ops import kernels
+
+    common = ["-w", "smoke", "--top-k", "10", "-j"]
+    hits = {}
+    kernels.reset_launch_counts()
+    for rung, budget in REDUCED_BUDGETS:
+        os.environ["SEMTOOLS_TPU_DEVICE_CACHE_BYTES"] = str(budget)
+        try:
+            text = run_cli(["workspace", "status", "smoke"])[0]
+            if f"int8-mxu-scan-{rung}" not in text:
+                raise AssertionError(f"workspace status at a {budget}-byte budget: {text!r}")
+            log(f"workspace: status at a {budget}-byte device budget: {text.splitlines()[3]}")
+            for label, argv in ((f"{rung} first", ["search", QUERIES[0], *files, *common]),
+                                (f"{rung} warm", ["search", QUERIES[0], *files, *common]),
+                                (f"{rung} -m", ["search", QUERIES[3], *files, *common,
+                                                "-m", repr(thr)])):
+                out, err, wall, stages = run_cli(argv)
+                if "Updating workspace" in err:
+                    raise AssertionError(f"workspace ({label}): 'Updating workspace' printed")
+                hits[label] = out
+                log(f"workspace: search -w ({label}): {wall:.3f} s wall; stages: {stages}")
+        finally:
+            os.environ.pop("SEMTOOLS_TPU_DEVICE_CACHE_BYTES")
+    log(f"reduced rungs: kernel launches: {kernels.launch_counts()} (plain scan)")
+    return hits
+
+
+def compact_steps(files) -> str:
+    """``workspace compact -j`` after the edit (the int8 corpus is first
+    brought back to the card: the budget steps evicted it); the next search
+    catches up by the patch's moves, uploading nothing. Counts reset just
+    before that search."""
+    from semtools_tpu_torch.ops import kernels
+    from semtools_tpu_torch.store import patch_cache
+
+    common = ["-w", "smoke", "--top-k", "10", "-j"]
+    stages = run_cli(["search", QUERIES[0], *files, *common])[3]
+    log(f"workspace: int8 tier again (after the budget steps): stages: {stages}")
+    out, _, wall, _ = run_cli(["workspace", "compact", "smoke", "-j"])
+    report = json.loads(out)
+    if report["slots_reclaimed"] != LINES_PER_FILE or \
+            report["slots_before"] - report["rows_live"] != LINES_PER_FILE:
+        raise AssertionError(f"workspace compact: {report}")
+    log(f"workspace: compact: {wall:.3f} s wall; {report}")
+    shipped = patch_cache.uploaded_bytes()
+    kernels.reset_launch_counts()
+    out, _, wall, stages = run_cli(["search", QUERIES[1], *files, *common])
+    shipped = patch_cache.uploaded_bytes() - shipped
+    patched_by(stage_seconds(), "search after compact", shipped, 0)
+    launches_of(INT8_PATH, "search after compact")
+    log(f"workspace: search -w after compact: {wall:.3f} s wall; stages: {stages}; "
+        f"{shipped} bytes uploaded")
+    return out
+
+
+def daemon_steps(files):
+    """The daemon, served from a thread of this process (warm-up included)
+    under its own socket directory, with ``SEMTOOLS_WORKSPACE`` set: a
+    forwarded search from a child process against the same search in a
+    child that does not forward; 8 concurrent child clients, each output
+    equal to its direct run, merged by the coalescer, the int8 kernels
+    launched from the daemon (counts reset just before); an edit, then a
+    forwarded search the daemon serves by a patch; stop. Returns the
+    outputs and the edit (file index, line, text)."""
+    import threading
+
+    from semtools_tpu_torch import daemon
+    from semtools_tpu_torch.ops import kernels
+    from semtools_tpu_torch.store import coalesce, patch_cache
+    from semtools_tpu_torch.utils import tracing
+
+    common = ["--top-k", "10", "-j"]
+    os.environ.update(SEMTOOLS_TPU_DAEMON_DIR=str(Path(os.environ["HOME"]) / "run"),
+                      SEMTOOLS_WORKSPACE="smoke")
+    t0 = time.perf_counter()
+    server = threading.Thread(target=daemon.serve, daemon=True)
+    server.start()
+    try:
+        for _ in range(1200):
+            if daemon.ping():
+                break
+            time.sleep(0.05)
+        else:
+            raise AssertionError("the daemon did not come up")
+        log(f"daemon: listening on {daemon.socket_path().name} {time.perf_counter() - t0:.3f} s "
+            f"after serve() (warm-up included)")
+        child_env = dict(os.environ, PYTHONPATH=str(REPO))
+
+        def client(query, forward=True, window_ms=None):
+            env = dict(child_env, SEMTOOLS_TPU_DAEMON="auto" if forward else "off")
+            if window_ms:  # the coalescer's gather window, forwarded with the request
+                env["SEMTOOLS_TPU_COALESCE_WINDOW_MS"] = window_ms
+            return subprocess.Popen(
+                [sys.executable, "-m", "semtools_tpu_torch.cli", "search", query, *files,
+                 *common], env=env, cwd=str(REPO), stdin=subprocess.DEVNULL,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        def finish(proc, what):
+            out, err = proc.communicate(timeout=300)
+            if proc.returncode:
+                raise AssertionError(f"{what}: exit {proc.returncode}: {err[-2000:]}")
+            return out, err
+
+        tracing.reset()
+        t0 = time.perf_counter()
+        forwarded, _ = finish(client(QUERIES[0]), "forwarded search")
+        wall_fwd = time.perf_counter() - t0
+        in_daemon = stage_text()
+        t0 = time.perf_counter()
+        direct, err = finish(client(QUERIES[0], forward=False), "direct search")
+        wall_direct = time.perf_counter() - t0
+        if forwarded != direct:
+            raise AssertionError("the forwarded search -w printed another answer than the "
+                                 "direct one")
+        log(f"daemon: search -w in a new process: forwarded {wall_fwd:.3f} s wall (stages in "
+            f"the daemon: {in_daemon}); direct {wall_direct:.3f} s wall (torch, CUDA, the model, "
+            f"the kernels and the corpus build in the process; stages: {exit_stages(err)}): "
+            f"equal outputs")
+
+        os.environ["SEMTOOLS_TPU_COALESCE"] = "0"
+        try:  # each query's direct run, in this process, neither forwarded nor merged
+            want = [run_cli(["search", q, *files, *common])[0] for q in QUERIES]
+        finally:
+            os.environ.pop("SEMTOOLS_TPU_COALESCE")
+        merged0 = coalesce.stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        clients = [client(q, window_ms="300") for q in QUERIES]
+        outs = [finish(p, f"client {i}")[0] for i, p in enumerate(clients)]
+        wall = time.perf_counter() - t0
+        launches = launches_of(INT8_PATH, "daemon, 8 concurrent clients")
+        merged = [a - b for a, b in zip(coalesce.stats(), merged0)]
+        if outs != want:
+            bad = [i for i, (o, w) in enumerate(zip(outs, want)) if o != w]
+            raise AssertionError(f"daemon clients {bad}: output differs from the direct run")
+        if merged[0] < 1:
+            raise AssertionError("8 concurrent clients: the coalescer merged no batch")
+        log(f"daemon: 8 concurrent clients in {wall:.3f} s wall: {merged[0]} merged scans of "
+            f"{merged[1]} queries in all; each output equals its direct run")
+
+        edit = (3, 50, "vector search kernel of the quick brown fox")
+        lines = Path(files[edit[0]]).read_text().split("\n")
+        lines[edit[1]] = edit[2]
+        Path(files[edit[0]]).write_text("\n".join(lines))
+        tracing.reset()
+        shipped = patch_cache.uploaded_bytes()
+        t0 = time.perf_counter()
+        after_edit, _ = finish(client(QUERIES[1]), "forwarded search after an edit")
+        wall = time.perf_counter() - t0
+        shipped = patch_cache.uploaded_bytes() - shipped
+        secs = stage_seconds()
+        patched_by(secs, "daemon (edit)", shipped, 4 * (D + 8))
+        log(f"daemon: forwarded search -w after a one-line edit: {wall:.3f} s wall; patched in "
+            f"{secs['slot_corpus_patch'] * 1e3:.1f} ms ({shipped} bytes uploaded), store_scan "
+            f"{secs['store_scan'] * 1e3:.1f} ms")
+    finally:
+        stopped = daemon.stop()
+        server.join(timeout=60)
+        coalesce._enabled = False
+        for key in ("SEMTOOLS_TPU_DAEMON", "SEMTOOLS_TPU_DAEMON_DIR", "SEMTOOLS_WORKSPACE"):
+            os.environ.pop(key, None)
+    if not stopped or server.is_alive():
+        raise AssertionError("daemon stop: the server did not shut down")
+    log(f"daemon: stopped; launches in the clients' run {launches}")
+    return {"forwarded": forwarded, "clients": outs, "edit": after_edit}, edit
 
 
 def int4_workspace_steps(files, qfile, subset, thr):

@@ -1,25 +1,29 @@
 """The ``semtools`` command line of the PyTorch port.
 
-Counterpart of ``semtools_tpu/cli.py``'s ``search`` and ``workspace``
-subcommands: the same flags, defaults, text output and ``--json`` schemas,
-plus ``--device`` on ``search`` (default ``cuda``; see
-:func:`semtools_tpu_torch.utils.platform.resolve_device`)::
+Counterpart of ``semtools_tpu/cli.py``'s ``search``, ``workspace`` and
+``daemon`` subcommands: the same flags, defaults, text output and ``--json``
+schemas, plus ``--device`` on ``search`` and ``daemon`` (default ``cuda``;
+see :func:`semtools_tpu_torch.utils.platform.resolve_device`)::
 
     python -m semtools_tpu_torch.cli search QUERY [FILES...] [-n N] [--top-k K]
         [-m DIST] [-i] [-j] [-Q QUERIES_FILE] [-w WORKSPACE] [--model-path P]
         [--device D]
-    python -m semtools_tpu_torch.cli workspace [-j] use|status|prune [NAME]
+    python -m semtools_tpu_torch.cli workspace [-j] use|status|prune|compact [NAME]
+    python -m semtools_tpu_torch.cli daemon [run|start|stop|status] [--device D]
 
 ``search`` runs in workspace mode when ``-w`` or ``SEMTOOLS_WORKSPACE``
 names a workspace (the JAX package's on-disk workspaces, shared by both
-packages). ``workspace compact|index`` and the ``parse``, ``ask`` and
-``daemon`` commands are not ported yet: they exit 1 with a message rather
-than run a different mode.
+packages). When this package's daemon runs (``daemon start``), every command
+but ``daemon`` is forwarded to it before torch is imported
+(``SEMTOOLS_TPU_DAEMON=off`` runs it here). ``workspace index`` and the
+``parse`` and ``ask`` commands are not ported yet: they exit 1 with a message
+rather than run a different mode.
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import os
 import sys
 from typing import List, Optional
@@ -29,7 +33,7 @@ from semtools_tpu_torch.utils.text import read_file_text, split_lines
 
 _HIGHLIGHT_ON = "\x1b[43m\x1b[30m"
 _HIGHLIGHT_OFF = "\x1b[0m"
-_NOT_PORTED = ("parse", "ask", "daemon")
+_NOT_PORTED = ("parse", "ask")
 
 
 def _fmt_distance(d: float) -> str:
@@ -318,6 +322,83 @@ def workspace_prune_cmd(args) -> int:
     return 0
 
 
+def workspace_compact_cmd(args) -> int:
+    from semtools_tpu_torch.store import Store, Workspace
+
+    Workspace.active(args.name)
+    ws = Workspace.open(args.name)
+    with Store(ws.config.root_dir) as store:
+        report = store.compact()
+    if args.json:
+        print(json_mode.dumps({"workspace": ws.config.name, **report}))
+    else:
+        if report["slots_reclaimed"] == 0:
+            print(f"Workspace is already compact ({report['rows_live']} lines).")
+        else:
+            print(
+                f"Compacted {report['rows_live']} lines: reclaimed "
+                f"{report['slots_reclaimed']} of {report['slots_before']} slots."
+            )
+    return 0
+
+
+def daemon_cmd(args) -> int:
+    import subprocess
+    import time
+
+    from semtools_tpu_torch import daemon
+
+    action = args.action
+    if not daemon.supported():
+        if action in ("run", "start"):
+            print(
+                "Error: the semtools daemon requires unix sockets and is "
+                "unsupported on this platform; commands run locally "
+                "without it.",
+                file=sys.stderr,
+            )
+            return 1
+        print("Daemon unsupported on this platform (commands run locally).")
+        return 0
+    if action == "run":
+        if args.device:
+            os.environ["SEMTOOLS_TORCH_DEVICE"] = args.device
+        daemon.serve()
+        return 0
+    if action == "start":
+        if daemon.ping():
+            print("Daemon already running.")
+            return 0
+        log_path = daemon.socket_path().parent / "daemon-torch.log"
+        log_path.parent.mkdir(parents=True, exist_ok=True)
+        cmd = [sys.executable, "-m", "semtools_tpu_torch.cli", "daemon", "run"]
+        if args.device:
+            cmd += ["--device", args.device]
+        with open(log_path, "ab") as log:
+            subprocess.Popen(cmd, stdout=log, stderr=log, stdin=subprocess.DEVNULL,
+                             start_new_session=True)
+        # the warm-up (model upload, kernel build on a fresh checkout, the
+        # workspace corpus) comes before the socket
+        for _ in range(600):
+            if daemon.ping():
+                print(f"Daemon started (socket {daemon.socket_path()}).")
+                return 0
+            time.sleep(0.3)
+        print("Error: daemon did not come up; see", log_path, file=sys.stderr)
+        return 1
+    if action == "stop":
+        if daemon.stop():
+            print("Daemon stopped.")
+            return 0
+        print("No daemon running.")
+        return 0
+    if daemon.ping():
+        print(f"Daemon running (socket {daemon.socket_path()}).")
+    else:
+        print("No daemon running.")
+    return 0
+
+
 def workspace_not_ported_cmd(args) -> int:
     print(f"Error: 'workspace {args.wcmd}' is not ported yet (see ROADMAP.md)",
           file=sys.stderr)
@@ -372,7 +453,8 @@ def build_parser() -> argparse.ArgumentParser:
         ("prune", "Remove stale files from store", workspace_prune_cmd),
         ("index", "Build or refresh the IVF-PQ ANN index (not ported yet)",
          workspace_not_ported_cmd),
-        ("compact", "Reclaim slot space (not ported yet)", workspace_not_ported_cmd),
+        ("compact", "Reclaim slot space left by deleted/rewritten documents",
+         workspace_compact_cmd),
     ):
         a = wsub.add_parser(action, help=help_text)
         if action == "use":
@@ -383,13 +465,37 @@ def build_parser() -> argparse.ArgumentParser:
             a.add_argument("-f", "--force", action="store_true")
         a.add_argument("-j", "--json", action="store_true", default=argparse.SUPPRESS)
         a.set_defaults(func=func)
+
+    d = sub.add_parser(
+        "daemon", help="Resident process that keeps the model, the kernels and "
+        "the workspace corpus on the device across invocations"
+    )
+    d.add_argument("action", choices=["run", "start", "stop", "status"],
+                   nargs="?", default="status")
+    d.add_argument("--device", default=None,
+                   help="torch device the daemon warms up (default: "
+                   "$SEMTOOLS_TORCH_DEVICE, else cuda)")
+    d.set_defaults(func=daemon_cmd)
     return parser
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    # Forward to a running daemon before anything imports torch: that is
+    # what makes a forwarded command cheap.
+    from semtools_tpu_torch import daemon as _daemon
+
+    if _daemon.should_forward(argv):
+        stdin_text = None if sys.stdin.isatty() else sys.stdin.read()
+        code = _daemon.forward(argv, stdin_text)
+        if code is not None:
+            return code
+        # Daemon unreachable or busy: run here, with the stdin already read.
+        if stdin_text is not None:
+            sys.stdin = io.StringIO(stdin_text)
+
     from semtools_tpu_torch.utils.tracing import maybe_device_trace
 
-    argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] in _NOT_PORTED:
         print(
             f"Error: '{argv[0]}' is not ported yet (see ROADMAP.md)",

@@ -13,8 +13,9 @@ Nothing CUDA-specific happens at import, so every module of the port imports
 on a machine without a card or a compiler. A missing ``nvcc`` or a failed
 build raises; there is no fallback to the plain PyTorch versions.
 
-Launch counts are plain integers per kernel, incremented by each wrapper
-right after its kernel launched (:func:`launch_counts`).
+Launch counts are integers per kernel, incremented under a lock by each
+wrapper right after its kernel launched (:func:`launch_counts`), so the
+daemon's handler threads count exactly.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ KERNELS = (
     "int4_tilemax", "int4_rescan_topk", "int4_tilemax_masked", "int4_rescan_topk_masked",
 )
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
+_launches_lock = threading.Lock()
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -58,16 +60,19 @@ last_build_seconds: Optional[float] = None
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far in this process, by kernel name."""
-    return dict(_launches)
+    with _launches_lock:
+        return dict(_launches)
 
 
 def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    with _launches_lock:
+        for name in _launches:
+            _launches[name] = 0
 
 
 def count_launch(name: str) -> None:
-    _launches[name] += 1
+    with _launches_lock:
+        _launches[name] += 1
 
 
 def _nvcc() -> str:

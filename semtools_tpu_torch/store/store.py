@@ -15,20 +15,24 @@ over as it is, so the two packages read and write the same workspace:
 The serving side runs on one torch device (:attr:`Store.device`, resolved
 lazily: ``cuda`` unless ``cpu`` is asked for; ``workspace status`` never
 touches it). Whole-store and path-subset queries are served from the
-store's slot-space device corpus (``patch_cache``) on the tier the JAX
-package's policy names (``serving_tier``): the exact f32 scan (fused
-kernels ``csrc/fused_scan.cu``); the int8 tier (two-phase int8 kernels
-``csrc/int8_scan.cu``, plain and masked) with an exact f32 re-rank in numpy
-on the host, grown until the margin certificate proves the top-k complete;
-or the int4 capacity rung (the deep-candidate sweep of
-``csrc/int4_scan.cu``, plain and masked: every row within a noise margin of
-each query's quantized ``k_cut``-th best) with the same re-rank.
+store's slot-space device corpus (``patch_cache``, patched in place across
+mutations) on the tier the JAX package's policy names (``serving_tier``):
+the exact f32 scan (fused kernels ``csrc/fused_scan.cu``); the int8 tier
+(two-phase int8 kernels ``csrc/int8_scan.cu``, plain and masked) with an
+exact f32 re-rank in numpy on the host, grown until the margin certificate
+proves the top-k complete; the int4 capacity rung (the deep-candidate sweep
+of ``csrc/int4_scan.cu``, plain and masked: every row within a noise margin
+of each query's quantized ``k_cut``-th best) with the same re-rank; or the
+reduced-64d/32d rungs (``ops/reduce.py``: the rows projected to int8 with a
+residual-norm column, scored through the plain scan by the per-row
+optimistic bound, with the same growth and re-rank).
 Other path subsets gather their rows and scan them on the device (the
 compact path). ``SEMTOOLS_TPU_SCAN=host`` scores on the host from the mmap;
 ``auto`` means the device (the JAX package's link-probe placement is not
 ported). When the policy names a tier the port does not have yet (IVF-PQ,
-reduced-dim, sharded), the store raises :class:`NotPortedError` rather than
-serve another tier in its place.
+sharded), the store raises :class:`NotPortedError` rather than serve another
+tier in its place. :meth:`Store.compact` rewrites the slot space densely into
+the next epoch of the vector file, byte for byte as the JAX package does.
 """
 
 from __future__ import annotations
@@ -722,7 +726,7 @@ class Store:
         reduced-64d holds ~67M rows and the 32d rung ~134M). Explicit
         sub-32 values are honored as-is but never auto-halved further.
         The JAX package's policy, kept so both packages name the same
-        tier; the port does not serve these rungs yet.
+        tier.
         """
         rd = _env_int("SEMTOOLS_TPU_REDUCED_DIM", 64)
         if rd <= 0 or rd >= self.dim:
@@ -814,17 +818,14 @@ class Store:
             return "int8", None
         return "f32", None
 
-    def _served_kind(self, n_rows: int) -> str:
-        """'f32', 'int8' or 'int4', the whole-store device tier the policy
-        picks; raises :class:`NotPortedError` for the tiers the port has not
-        yet (IVF-PQ, sharded, reduced-dim int8)."""
+    def _served_kind(self, n_rows: int) -> Tuple[str, Optional[int]]:
+        """(kind, reduced_dim) of the whole-store device tier the policy
+        picks (:meth:`_device_kind`); raises :class:`NotPortedError` for the
+        tiers the port has not yet (IVF-PQ, sharded)."""
         if self._use_ann_tier(n_rows):
             raise NotPortedError("the IVF-PQ serving tier")
         _sharded_enabled(n_rows)
-        kind, rd = self._device_kind(n_rows)
-        if rd:
-            raise NotPortedError(f"the reduced-{rd}d int8 serving tier")
-        return kind
+        return self._device_kind(n_rows)
 
     def serving_tier(self, n_rows: Optional[int] = None) -> str:
         """Name of the tier a whole-store query would use right now
@@ -833,8 +834,10 @@ class Store:
             n_rows = self.count_line_embeddings()
         if os.environ.get("SEMTOOLS_TPU_SCAN", "").lower() == "host":
             return "host-mmap-scan"
-        kind = self._served_kind(n_rows)
-        return "exact-mxu-scan" if kind == "f32" else f"{kind}-mxu-scan"
+        kind, rd = self._served_kind(n_rows)
+        if kind == "f32":
+            return "exact-mxu-scan"
+        return f"{kind}-mxu-scan" + (f"-reduced{rd}d" if rd else "")
 
     def build_ann_index(self, force: bool = False, verbose: bool = False):
         """The IVF-PQ capacity tier: nothing to do while the corpus fits the
@@ -1013,15 +1016,32 @@ class Store:
         top_k: int,
         max_distance: Optional[float] = None,
     ) -> List[List[RankedLine]]:
-        """Batched search: Q query rows against the same path subset.
+        """Batched search: Q query rows against the same path subset. In the
+        daemon, concurrent calls of the same shape coalesce into one scan
+        (``store/coalesce.py``)."""
+        from semtools_tpu_torch.store import coalesce
 
-        Retries once on a stale snapshot: if a concurrent compact() (by the
-        JAX package) swaps the vector-file epoch between this query's
-        layout read and its row access, the row gather can fault (file
-        retired: FileNotFoundError; new epoch smaller than a stale slot:
-        IndexError; mmap/file size disagreement: ValueError). All state is
-        re-readable, so drop the snapshot and re-run once — the retry reads
-        the post-compact state consistently."""
+        if coalesce.enabled():
+            return coalesce.search_batched(
+                self, query_vecs, subset_paths, top_k, max_distance,
+                self._search_batched_retry,
+            )
+        return self._search_batched_retry(query_vecs, subset_paths, top_k, max_distance)
+
+    def _search_batched_retry(
+        self,
+        query_vecs: np.ndarray,
+        subset_paths: Sequence[str],
+        top_k: int,
+        max_distance: Optional[float] = None,
+    ) -> List[List[RankedLine]]:
+        """Batched search with a stale-snapshot retry: if a concurrent
+        compact() swaps the vector-file epoch between this query's layout
+        read and its row access, the row gather can fault (file retired:
+        FileNotFoundError; new epoch smaller than a stale slot: IndexError;
+        mmap/file size disagreement: ValueError). All state is re-readable,
+        so drop the snapshot and re-run once — the retry reads the
+        post-compact state consistently."""
         try:
             return self._search_batched_impl(
                 query_vecs, subset_paths, top_k, max_distance
@@ -1136,12 +1156,19 @@ class Store:
         ]
 
     @staticmethod
-    def _int8_oversample(top_k: int, n: int) -> int:
+    def _int8_oversample(top_k: int, reduced: bool, n: int) -> int:
         """INITIAL candidate count for the exact re-rank — a warm start,
         not a recall guarantee: the serving loop grows the pool until the
         margin-bounded top-k completion criterion proves no outside row
-        can displace a served one (_search_slot_cached_batched). The int8
-        tier's ~1e-2 sim error rarely grows past 4*k."""
+        can displace a served one (_search_slot_cached_batched). The
+        reduced tier starts deep (corpus-size-scaled, see
+        ops.reduce.reduced_oversample) because its projection error usually
+        needs it; the full-dim int8 tier's ~1e-2 sim error rarely grows
+        past 4*k."""
+        if reduced:
+            from semtools_tpu_torch.ops.reduce import reduced_oversample
+
+            return reduced_oversample(n, top_k)
         return min(max(4 * top_k, 16), n)
 
     def _tier_bytes_per_row(self, kind: str, reduced_dim: Optional[int]) -> int:
@@ -1242,10 +1269,7 @@ class Store:
             return None
         _sharded_enabled(total_rows)
         kind, rd = self._device_kind(total_rows)
-        warm = not rd and kind in ("f32", "int8", "int4") and patch_cache.is_warm(
-            self, kind, self.device
-        )
-        if mode not in ("1", "on") and not warm:
+        if mode not in ("1", "on") and not patch_cache.is_warm(self, kind, self.device, rd):
             subset_rows = sum(n for _, _, n in subset_ranges)
             build_bytes = self._slot_rows(total_rows) * self._tier_bytes_per_row(kind, rd)
             if subset_rows * 4 * self.dim < build_bytes:
@@ -1312,8 +1336,8 @@ class Store:
         from semtools_tpu_torch.ops.int8_scan import int8_topk_scan, quantize_global
         from semtools_tpu_torch.store import patch_cache
 
-        kind = self._served_kind(n_rows)
-        sc = patch_cache.get(self, kind, self.device)
+        kind, reduced_dim = self._served_kind(n_rows)
+        sc = patch_cache.get(self, kind, self.device, reduced_dim)
         if sc is None:
             return None
         qs = np.asarray(query_vecs, np.float32)
@@ -1338,8 +1362,8 @@ class Store:
                 if ok and np.isfinite(dv)
             ]
 
-        def _topk(k_scan):
-            d, i = topk_scan(q_dev, sc.corpus, k_scan, n_true=sc.capacity, mask=mask)
+        def _topk(k_scan, q_scan=q_dev):
+            d, i = topk_scan(q_scan, sc.corpus, k_scan, n_true=sc.capacity, mask=mask)
             return d.cpu().numpy(), i.cpu().numpy()
 
         if kind == "f32":
@@ -1377,19 +1401,40 @@ class Store:
                 ids.cpu().numpy(), qs, owners, paths, need, top_k, max_distance,
             )
 
-        oversample = self._int8_oversample(top_k, sel_rows)
+        oversample = self._int8_oversample(top_k, reduced_dim is not None, sel_rows)
+
+        q_r = q_aug = None
+        if reduced_dim:
+            # Optimistic-bound augmentation: the stored corpus is
+            # [cap, rd+1] with each row's ceil-quantized residual norm in the
+            # last column; scoring [q_r, q_perp * resid_scale / scale] with
+            # the same matmul yields (after the global rescale)
+            # q_r.x_r + q_perp*r_i, an UPPER bound on q.x for every row, so
+            # 1 - it is a per-row lower bound on the exact distance (up to
+            # the int8 rounding of the projection columns).
+            q_r = qs @ sc.rotation
+            q_perp = np.linalg.norm(qs - q_r @ sc.rotation.T, axis=1)
+            aug = (q_perp * (float(sc.resid_scale or 0.0) / sc.scale)
+                   if sc.scale else np.zeros(qn, np.float32))
+            q_aug = torch.from_numpy(
+                np.concatenate([q_r, aug[:, None]], axis=1).astype(np.float32)
+            ).to(self.device)
 
         def _fused(k_now: int) -> bool:
             # The int8 kernels take CLI-scale batches (the JAX package's
-            # routing limits); larger ones score the unscaled int corpus
-            # through the plain scan (int8 rows widened, ranking unchanged).
-            return k_now <= 64 and qn <= 32
+            # routing limits); larger ones, and the reduced corpus, score the
+            # unscaled int corpus through the plain scan (int8 rows widened,
+            # ranking unchanged).
+            return not reduced_dim and k_now <= 64 and qn <= 32
 
         def _candidates(k_sel: int):
             """([Q, k_sel] candidate slots, [Q, k_sel] TRUE-SCALE quantized
             distances ascending). The distances feed the completion
             criteria below."""
-            if _fused(k_sel):
+            if reduced_dim:
+                d, i = _topk(k_sel, q_aug)
+                dq = 1.0 - (1.0 - d) * (sc.scale or 0.0)
+            elif _fused(k_sel):
                 d, i = int8_topk_scan(
                     q_dev, sc.corpus, sc.scale, k_sel, n_true=sc.capacity, mask=mask,
                 )
@@ -1410,8 +1455,12 @@ class Store:
             available — the sqrt(D) fallback assumes unit rows. Used ONLY
             to prove threshold-mode pool completeness — a pool whose worst
             member's quantized distance clears max_distance + margin
-            provably contains every within-threshold row.
+            provably contains every within-threshold row. On the reduced
+            tier the scored value is already the optimistic bound, so only
+            the projection columns' rounding remains.
             """
+            if reduced_dim:
+                return 0.5 * (sc.scale or 0.0) * np.abs(q_r).sum(1)
             m = 0.5 * (sc.scale or 0.0) * np.abs(qs).sum(axis=1)
             _, q_scale = quantize_global(qs)
             if sc.max_row_int_l1:
@@ -1452,11 +1501,14 @@ class Store:
             element -> sigma = scale*||q||_2/sqrt(12)); and query-side
             rounding as a HARD term, only on the kernel path that
             actually quantizes the query (0.5*q_scale*||e||_1 with
-            ||e||_1 bounded by the corpus's measured max int-L1)."""
+            ||e||_1 bounded by the corpus's measured max int-L1). The
+            reduced tier has no residual term: its scan scores the per-row
+            optimistic bound, which covers the projection residual."""
             env = os.environ.get("SEMTOOLS_TPU_TOPK_MARGIN_SIGMAS", "6")
             hard_mode = env.strip().lower() == "hard"
             sigmas = 0.0 if hard_mode else float(env)
-            sig_c = (sc.scale or 0.0) * np.linalg.norm(qs, axis=1) / np.sqrt(12.0)
+            q_eff = q_r if reduced_dim else qs
+            sig_c = (sc.scale or 0.0) * np.linalg.norm(q_eff, axis=1) / np.sqrt(12.0)
             hard_q = 0.0
             if _fused(k_now):
                 _, q_scale = quantize_global(qs)
@@ -1467,7 +1519,7 @@ class Store:
             if hard_mode:
                 # Worst case: every element's rounding error aligns with
                 # the query.
-                hard_c = 0.5 * (sc.scale or 0.0) * np.abs(qs).sum(axis=1)
+                hard_c = 0.5 * (sc.scale or 0.0) * np.abs(q_eff).sum(axis=1)
                 return hard_c + hard_q + 1e-6
             # 1e-6: f32 arithmetic slack in the scan/re-rank dots
             return sigmas * sig_c + hard_q + 1e-6
@@ -1613,10 +1665,119 @@ class Store:
         )
         self.db.commit()
 
+    # -- compaction --------------------------------------------------------
+    #
+    # The free-range allocator reuses holes best-fit, but churn still leaves
+    # slot space larger than the live row count, and every capacity-shaped
+    # cost (device corpus, scan length, budget fit: see _slot_rows) is paid
+    # on CAPACITY. ``workspace compact`` densifies it.
+
     def fragmentation(self) -> Tuple[int, int]:
         """(live rows, slot capacity). capacity > live means dead slots
         are inflating device memory and scan time."""
         return self.count_line_embeddings(), self._capacity()
+
+    def _delete_epoch_files(self, keep_epoch: int) -> None:
+        """Remove vector/hash files of every epoch except ``keep_epoch``:
+        crash leftovers of an interrupted compact (new epoch written, swap
+        never committed) and superseded epochs whose post-commit unlink was
+        interrupted. Caller holds the write lock."""
+        keep = set(self._epoch_paths(keep_epoch))
+        for pat in (_VECTORS_FILE, _HASH_FILE, "lines.e*.f32", "lines.e*.h64"):
+            for p in self.dir.glob(pat):
+                if p not in keep:
+                    try:
+                        p.unlink()
+                    except OSError:
+                        pass
+
+    def compact(self) -> Dict[str, object]:
+        """Copy live blocks densely into the NEXT epoch of the vector file
+        and hash sidecar, swap epochs in one sqlite transaction, and empty
+        the free table; the JAX package's compaction, byte for byte.
+
+        Crash-safe with the copy-on-write contract of
+        :meth:`upsert_documents_bulk`: the new epoch's files are written and
+        fsynced BEFORE the one commit that repoints slot_starts,
+        'vec_epoch' and the generation, so a crash leaves the old state
+        (the next compact deletes the orphan files) or the new one. Readers
+        are never torn: a superseded epoch is immutable from the commit on
+        (an open mmap keeps its snapshot after the unlink; a reader that
+        loses the race retries through :meth:`_search_batched_retry`).
+        A cached device corpus catches up by the patch's move path (the
+        rows keep their content hashes).
+
+        Returns ``{"rows_live", "slots_before", "slots_reclaimed",
+        "index_remapped"}``; ``index_remapped`` is False (the port keeps no
+        IVF-PQ index).
+        """
+        with self._write_lock():
+            epoch = self._vec_epoch()
+            self._delete_epoch_files(keep_epoch=epoch)
+            layout = self._layout_with_rev()  # ascending slot order
+            cap_before = self._capacity()
+            total = sum(n for _, _, n, _ in layout)
+            moves: List[Tuple[str, int]] = []  # (path, new slot_start)
+            dest = 0
+            for path, s, n, _ in layout:
+                if s != dest:
+                    moves.append((path, dest))
+                dest += n
+            report = {"rows_live": total, "slots_before": cap_before,
+                      "slots_reclaimed": 0, "index_remapped": False}
+            if not moves and cap_before == total:
+                return report
+            new_vec, new_hash = self._epoch_paths(epoch + 1)
+            mm = self._mmap("r")
+            hm = self._hash_mmap("r")
+
+            def write_live(path, src) -> None:
+                """The live blocks of ``src`` in slot order, fsynced."""
+                with open(path, "wb") as f:
+                    for _, s, n, _ in layout if src is not None else ():
+                        for off in range(0, n, 1 << 16):
+                            f.write(np.asarray(src[s + off : s + min(off + (1 << 16), n)]).tobytes())
+                    f.flush()
+                    os.fsync(f.fileno())
+
+            write_live(new_vec, mm)
+            if hm is not None:
+                write_live(new_hash, hm)
+            del mm, hm
+            # make the new directory entries durable before the commit that
+            # starts referencing them
+            try:
+                dfd = os.open(self.dir, os.O_RDONLY)
+                os.fsync(dfd)
+                os.close(dfd)
+            except OSError:
+                pass
+            # The swap: one transaction, the crash-atomicity point. On any
+            # failure roll back explicitly (close() commits pending work).
+            try:
+                for path, dst in moves:
+                    self.db.execute("UPDATE docs SET slot_start = ? WHERE path = ?", (dst, path))
+                self.db.execute("DELETE FROM free")
+                self.db.execute(
+                    """INSERT INTO meta (key, value) VALUES ('vec_epoch', ?)
+                       ON CONFLICT(key) DO UPDATE SET value = excluded.value""",
+                    (str(epoch + 1),),
+                )
+                self._bump_generation()
+                self.db.commit()
+            except BaseException:
+                self.db.rollback()
+                raise
+            self._refresh_vec_paths()
+            # retire the superseded epoch (safe for open reader mmaps)
+            for p in self._epoch_paths(epoch):
+                try:
+                    p.unlink()
+                except OSError:
+                    pass
+            self._ranges_cache = None
+            report["slots_reclaimed"] = cap_before - total
+            return report
 
     # -- maintenance -------------------------------------------------------
 

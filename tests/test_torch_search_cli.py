@@ -172,8 +172,7 @@ def test_queries_file_matches_jax_cli(env, capsys, monkeypatch, flags, stdin_doc
 
 def test_unported_modes_exit_1(env, capsys, monkeypatch):
     files, _ = env
-    for argv in (["parse", *files], ["ask", "q", *files], ["daemon", "status"],
-                 ["workspace", "compact", "ws"], ["workspace", "index", "ws"]):
+    for argv in (["parse", *files], ["ask", "q", *files], ["workspace", "index", "ws"]):
         rc, out, err = _run(torch_cli.main, argv, capsys, monkeypatch)
         assert rc == 1 and out == "" and "not ported yet" in err, argv
     rc, _, err = _run(torch_cli.main, ["search", "q", "--device", "cpu"], capsys, monkeypatch,
@@ -211,10 +210,11 @@ def test_device_is_explicit(monkeypatch):
 
 
 def test_port_search_never_imports_jax(env, tmp_path):
-    """A plain search and workspace searches (int8 and int4 tiers), in a
-    child process that can see only the port (``semtools_tpu_torch/`` and
-    ``cpp/``, without the JAX package or its ``_native/`` build), import
-    nothing of jax or of the JAX package."""
+    """A plain search, workspace searches (int8 and int4 tiers), a daemon
+    serving (warm-up included) and a search forwarded to it, in a child
+    process that can see only the port (``semtools_tpu_torch/`` and ``cpp/``,
+    without the JAX package or its ``_native/`` build), import nothing of jax
+    or of the JAX package."""
     import shutil
 
     files, _ = env
@@ -236,6 +236,23 @@ def test_port_search_never_imports_jax(env, tmp_path):
         f"rc = main(['search', 'lazy dog', *{files!r}, '-w', 'guard', '--device', 'cpu'])\n"
         "assert rc == 0, rc\n"
         "assert main(['workspace', 'status', 'guard']) == 0\n"
+        "import contextlib, io, json, threading, time\n"
+        "from semtools_tpu_torch import daemon\n"
+        "os.environ.update(SEMTOOLS_TPU_DAEMON_DIR=sys.argv[2], SEMTOOLS_WORKSPACE='guard',\n"
+        "                  SEMTOOLS_TORCH_DEVICE='cpu')\n"
+        "th = threading.Thread(target=daemon.serve, daemon=True)\n"
+        "th.start()\n"
+        "for _ in range(1200):\n"
+        "    if daemon.ping():\n"
+        "        break\n"
+        "    time.sleep(0.05)\n"
+        "buf = io.StringIO()\n"
+        "with contextlib.redirect_stdout(buf):\n"
+        f"    rc = daemon.forward(['search', 'lazy dog', *{files!r}, '-j'], None)\n"
+        "assert rc == 0 and json.loads(buf.getvalue())['results'], (rc, buf.getvalue())\n"
+        "assert daemon.stop()\n"
+        "th.join(timeout=30)\n"
+        "assert not th.is_alive()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'semtools_tpu'))\n"
         "assert not bad, bad\n"
@@ -246,7 +263,8 @@ def test_port_search_never_imports_jax(env, tmp_path):
     child_env = dict(os.environ, HOME=str(tmp_path / "home"), PYTHONPATH=str(root),
                      SEMTOOLS_TPU_NO_FETCH="1", SEMTOOLS_TPU_ALLOW_FALLBACK="1")
     child_env.pop("SEMTOOLS_WORKSPACE", None)
-    proc = subprocess.run([sys.executable, "-c", script, str(root)], cwd=str(tmp_path),
+    proc = subprocess.run([sys.executable, "-c", script, str(root), str(tmp_path / "run")],
+                          cwd=str(tmp_path),
                           env=child_env, capture_output=True, text=True,
                           stdin=subprocess.DEVNULL, timeout=300)
     assert proc.returncode == 0, proc.stderr

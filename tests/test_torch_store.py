@@ -197,7 +197,7 @@ def test_repeated_search_uses_the_cached_corpus(stores, monkeypatch):
     assert _hits(again) == _hits(first)
     t.upsert_documents_bulk([("/c.txt", _unit(np.random.default_rng(2), 9), None)])
     after = t.search_line_embeddings_batched(q, SUBSETS["two"], 5)
-    assert patch_cache.uploaded_bytes() > before  # new generation: rebuilt
+    assert patch_cache.uploaded_bytes() > before  # new generation: patched
     j.upsert_documents_bulk([("/c.txt", _unit(np.random.default_rng(2), 9), None)])
     _assert_same(j.search_line_embeddings_batched(q, SUBSETS["two"], 5), after, exact=True)
 
@@ -277,7 +277,14 @@ def test_unported_tiers_raise(stores, monkeypatch, env, what):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     if what == "reduced-8d":
-        assert "reduced8d" in j.serving_tier()  # the JAX package serves it
+        # ported since: both packages serve the rung, with the same hits
+        # (distances within F32_ATOL: each re-ranks its own f32-scored pool)
+        assert t.serving_tier() == j.serving_tier() == "int8-mxu-scan-reduced8d"
+        for subset, top_k, max_distance in (("all", 5, None), ("two", 8, None),
+                                            ("all", 10, 0.9)):
+            want, got = _search(j, t, _queries(docs), SUBSETS[subset], top_k, max_distance)
+            _assert_same(want, got, exact=False)
+        return
     with pytest.raises(NotPortedError, match=f"{what}.*not ported yet"):
         t.serving_tier()
     with pytest.raises(NotPortedError, match="not ported yet"):
