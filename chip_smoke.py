@@ -74,9 +74,28 @@ exits non-zero without them. Phases:
    against the same search in a child that does not forward, 8 concurrent
    child clients (one coalesced scan or a few; each output equal to its
    direct run; the int8 kernels launched from the daemon's threads), an
-   edit then a forwarded search (patched, not rebuilt), and ``stop``.
+   edit then a forwarded search (patched, not rebuilt), and ``stop``;
+8. IVF-PQ: the index layer (``semtools_tpu_torch/index``) on a seeded,
+   clustered 100,000 x 256 set (nlist 1024, m 32), built twice on the card
+   (byte-equal: the build's determinism) and once on the CPU (the full
+   builds' agreement logged: k-means amplifies last-bit differences); on the
+   card's quantizers a Lloyd step and the fused pass agree on the card and
+   the CPU to >= 99.9% of the assignments and code bytes and answer 64
+   queries alike; then on a 10M x 256 tensor made on the card (nlist 4096:
+   train, fused pass and finalize timed, the memory peak, the lists and
+   codes of one chunk's worth of sampled rows recomputed by the separate
+   passes); then the store,
+   on the workspace of phases 6-7 with ``SEMTOOLS_TPU_FORCE_ANN=1``:
+   ``workspace index --force -j`` built on the card, ``workspace status``
+   naming ``ivf-pq``, a ``-Q`` 8 search (every served distance equal to
+   ``1 - row . q`` from the vector file within 1e-6; recall@10 against the
+   exact hits logged), the 300-file subset (served exactly by the compact
+   path: the fused kernels' launches counted), ``workspace compact``
+   (``index_remapped``; the next search names ``ivf-pq`` with the same hits)
+   and a one-line edit served through the delta (no rebuild: the meta
+   untouched, one document in the reconcile).
 
-Phases 5-7 check their hits against a plain exact scan of the same
+Phases 5-8 check their hits against a plain exact scan of the same
 embeddings on the card (tolerance as in phase 2), and every kernel of each
 path must show launches in that path's run (counts reset just before it).
 The launch floor (an empty kernel through the kernels' ctypes path) is
@@ -135,6 +154,12 @@ INT4_BUDGET = 209_715_200  # bytes: under the int8 corpus of 1M x 256, over the 
 # int4 one (128 B), then between the reduced-32d (33 B) and the 64d one
 REDUCED_BUDGETS = (("reduced64d", 104_857_600), ("reduced32d", 52_428_800))
 INT8_PATH = ("int8_tilemax", "select_subtiles", "int8_rescan_topk")
+F32_PATH = ("fused_tilemax", "select_subtiles", "fused_rescan_topk")
+# The IVF-PQ index layer: a clustered set built on the card and on the CPU,
+# then a corpus at scale made on the card.
+ANN_ROWS, ANN_CENTERS, ANN_SPREAD, ANN_QUERIES = 100_000, 4096, 0.05, 64
+SCALE_ROWS, SCALE_CENTERS = 10_000_000, 65_536
+AGREE = 0.999  # card against CPU on the same quantizers: least share of equal results
 E_SCALE = 1.0 / 7.0  # the packed corpora of phase 4 are random bytes: any scale serves
 # Data-sheet peaks of one H100 SXM at 700 W: HBM bytes/s, f32 FLOP/s on the
 # CUDA cores, int8 tensor-core OP/s.
@@ -210,6 +235,30 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def traced(fn, reps: int = 1, tries: int = 5):
+    """(the CUDA events in start order, wall ms) of ``reps`` calls of ``fn``
+    under torch.profiler. Now and then the profiler hands back a trace that
+    holds no device event at all, though the calls launched kernels: such a
+    trace is taken again, up to ``tries`` times in all, and each retry is
+    logged. The last trace is returned, empty or not."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        if events or attempt == tries:
+            return events, wall
+        log(f"profiler: trace {attempt} of {tries} held no device event; tracing again")
+
+
 def device_ms(fn, name=None, reps: int = 20) -> float:
     """Device time of ``fn`` under torch.profiler over ``reps`` calls: with
     ``name``, the mean of the traced launches of the kernels whose name holds
@@ -217,16 +266,11 @@ def device_ms(fn, name=None, reps: int = 20) -> float:
     the profiler traces no device work, events around the replay of a CUDA
     graph of the same calls."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-              and (name is None or name in e.name)]
+    events, _ = traced(fn, reps)
+    events = [e for e in events if name is None or name in e.name]
     if events:
         return sum(e.time_range.elapsed_us() for e in events) / 1e3 / (
             reps if name is None else len(events))
@@ -308,15 +352,10 @@ def two_phase_ops(what: str, fn, phase1: str) -> None:
     nothing else (no torch op, no copy) until the [Q, k] answer they write;
     what a caller does with the answer (distances from sims) comes after."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ops = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)
+    ops, _ = traced(fn)
     names = [e.name for e in ops]
     first = next((i for i, n in enumerate(names) if phase1 in n), None)
     after = names[first + 1:] if first is not None else names
@@ -873,15 +912,7 @@ def device_busy(fn, top: int = 0):
     """(device ms, wall ms, [(kernel, device ms)] of the ``top`` kernels by
     device time) of ``fn()`` under torch.profiler: the summed intervals of
     the CUDA events (kernels and copies) it traced."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events, wall = traced(fn)
     busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
     by_name = {}
     for e in events:
@@ -1020,6 +1051,7 @@ def workspace_phase(files, qfile, model, corpus, starts):
             edited2 = edited.clone()
             edited2[int(starts[daemon_edit[0]]) + daemon_edit[1]] = model.encode(
                 [daemon_edit[2]])[0]
+            ann_steps(files, qfile, subset, model, edited2, starts)
         finally:
             if old_home is None:
                 os.environ.pop("HOME", None)
@@ -1348,6 +1380,300 @@ def int4_workspace_steps(files, qfile, subset, thr):
     return hits, launches_of(K6, "int4 workspace")
 
 
+def build_timed(x, label, **kw):
+    """(index, wall seconds) of one ``IvfPqIndex.build``; logs its stages."""
+    import torch
+
+    from semtools_tpu_torch.index import IvfPqIndex
+    from semtools_tpu_torch.utils import tracing
+
+    tracing.reset()
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = IvfPqIndex.build(x, m=32, **kw)
+    secs = time.perf_counter() - t0
+    st = stage_seconds()
+    text = (f"train {st['ann_train'] * 1e3:.1f} ms, fused pass {st['ann_encode'] * 1e3:.1f} ms, "
+            f"finalize {st['ann_finalize'] * 1e3:.1f} ms")
+    log(f"ivf-pq: build of {x.shape[0]} x {x.shape[1]} (nlist {index.nlist}, m 32) on the "
+        f"{label}: {secs:.3f} s; {text}")
+    return index, secs
+
+
+def row_lists(index):
+    """[N] list id of each original row, [N, M] its codes."""
+    import numpy as np
+
+    lists = np.searchsorted(index.list_offsets, np.arange(index.n), side="right") - 1
+    by_row = np.empty(index.n, np.int64)
+    by_row[index.perm] = lists
+    codes = np.empty_like(index.codes)
+    codes[index.perm] = index.codes
+    return by_row, codes
+
+
+def ivf_pq_index_phase(dev):
+    """The index layer: a clustered 100k set built twice on the card
+    (byte-equal) and once on the CPU; on the card's quantizers, a Lloyd step
+    and the fused pass on the card and on the CPU agree on >= 99.9% of the
+    assignments and code bytes and answer 64 queries alike (exact re-rank);
+    then 10M rows made on the card."""
+    import numpy as np
+    import torch
+
+    from semtools_tpu_torch.index import IvfPqIndex, kmeans
+    from semtools_tpu_torch.index.ivf_pq import _chunk_rows, _fused_assign_encode
+    from semtools_tpu_torch.index.pq import pq_encode
+    from semtools_tpu_torch.store.store import Store
+
+    rng = np.random.default_rng(SEED + 2)
+    centers = rng.standard_normal((ANN_CENTERS, D)).astype(np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    x = centers[rng.integers(0, ANN_CENTERS, ANN_ROWS)] + ANN_SPREAD * rng.standard_normal(
+        (ANN_ROWS, D)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    nlist = Store._ann_nlist(ANN_ROWS)
+    card1, t_card = build_timed(x, "card", nlist=nlist, device=dev)
+    card2, t_card = build_timed(x, "card, again", nlist=nlist, device=dev)
+    host, t_cpu = build_timed(x, "CPU", nlist=nlist, device=torch.device("cpu"))
+    for name in ("centroids", "codes", "perm", "list_offsets", "vectors"):
+        if getattr(card1, name).tobytes() != getattr(card2, name).tobytes():
+            raise AssertionError(f"ivf-pq: two card builds differ in {name}")
+    if card1.pq.codebooks.tobytes() != card2.pq.codebooks.tobytes():
+        raise AssertionError("ivf-pq: two card builds differ in the codebooks")
+    # The full builds diverge: k-means amplifies the last-bit differences of
+    # two BLAS. Card against CPU is held on the SAME quantizers: one Lloyd
+    # step from the card's centroids, and the fused pass with the card's
+    # centroids and codebooks.
+    lists_c, codes_c = row_lists(card1)
+    lists_h, codes_h = row_lists(host)
+    log(f"ivf-pq: full builds, card against CPU: {(lists_c == lists_h).mean():.6f} of the "
+        f"assignments, {(codes_c == codes_h).mean():.6f} of the code bytes equal, centroids max "
+        f"|diff| {np.abs(card1.centroids - host.centroids).max():.3g}; the CPU build "
+        f"{t_cpu / t_card:.1f}x the card's wall")
+    xh = torch.from_numpy(x)
+    cents = torch.from_numpy(card1.centroids)
+    step_d, a_d = kmeans.kmeans_step(xh.to(dev), cents.to(dev), nlist)
+    step_h, a_h = kmeans.kmeans_step(xh, cents, nlist)
+    same_step = float((a_d.cpu() == a_h).float().mean())
+    step_err = float((step_d.cpu() - step_h).abs().max())
+    books = torch.from_numpy(card1.pq.codebooks)
+    a_f, c_f = [], []
+    rows = _chunk_rows(ANN_ROWS, nlist, 32)
+    for s in range(0, ANN_ROWS, rows):
+        a, c = _fused_assign_encode(xh[s : s + rows], cents, 0.5 * (cents * cents).sum(1), books,
+                                    0.5 * (books * books).sum(2))
+        a_f.append(a.numpy())
+        c_f.append(c.numpy())
+    a_f, c_f = np.concatenate(a_f), np.concatenate(c_f)
+    same_list = float((lists_c == a_f).mean())
+    same_byte = float((codes_c == c_f).mean())
+    log(f"ivf-pq: same quantizers, card against CPU: a Lloyd step {same_step:.6f} of the "
+        f"assignments equal (centroids max |diff| {step_err:.3g}); the fused pass "
+        f"{same_list:.6f} of the assignments, {same_byte:.6f} of the code bytes "
+        f"({(codes_c == c_f).all(axis=1).mean():.6f} of the rows' codes) equal")
+    if min(same_step, same_list, same_byte) < AGREE:
+        raise AssertionError(f"ivf-pq: the card and the CPU agree on {same_step} / {same_list} "
+                             f"/ {same_byte} (Lloyd step / assignments / code bytes) < {AGREE}")
+    perm = np.argsort(a_f, kind="stable")
+    offsets = np.concatenate([[0], np.cumsum(np.bincount(a_f, minlength=nlist))])
+    on_cpu = IvfPqIndex(card1.centroids, card1.pq, c_f[perm], perm, offsets, x[perm])
+    q = x[rng.choice(ANN_ROWS, ANN_QUERIES, replace=False)] + 0.02 * rng.standard_normal(
+        (ANN_QUERIES, D)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    exact = np.argsort(-(q @ x.T), axis=1, kind="stable")[:, :10]
+    answers = {}
+    for label, index in (("card", card1), ("CPU, card's quantizers", on_cpu), ("CPU", host)):
+        d, i = index.search(q, k=10, nprobe=64, rerank=64)
+        answers[label] = (d, i)
+        recall = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(i, exact)])
+        log(f"ivf-pq: {ANN_QUERIES} queries (nprobe 64, 640 re-ranked) on the {label} build: "
+            f"recall@10 {recall:.4f} against the exact scan; "
+            f"{int((i == answers['card'][1]).all(axis=1).sum())} answers equal the card's")
+    (d_c, i_c), (d_h, i_h) = answers["card"], answers["CPU, card's quantizers"]
+    if not np.array_equal(i_c, i_h) or np.abs(d_c - d_h).max() > 1e-6:
+        raise AssertionError(f"ivf-pq: the card and the CPU answer {ANN_QUERIES} queries "
+                             f"differently on the same quantizers ({int((i_c != i_h).sum())} ids)")
+    del card1, card2, host
+
+    # at scale, from a tensor on the card: 10M rows, nlist 4096
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    cent = torch.randn((SCALE_CENTERS, D), generator=gen, device=dev)
+    cent /= cent.norm(dim=1, keepdim=True)
+    big = torch.empty((SCALE_ROWS, D), device=dev)
+    for s in range(0, SCALE_ROWS, 1 << 20):
+        e = min(s + (1 << 20), SCALE_ROWS)
+        lab = torch.randint(0, SCALE_CENTERS, (e - s,), generator=gen, device=dev)
+        blk = cent[lab] + ANN_SPREAD * torch.randn((e - s, D), generator=gen, device=dev)
+        big[s:e] = blk / blk.norm(dim=1, keepdim=True)
+    del cent, lab, blk
+    nlist = Store._ann_nlist(SCALE_ROWS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    index, _ = build_timed(big, "card, from a tensor there", nlist=nlist, keep_vectors=False)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"ivf-pq: 10M build: device memory peak {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} "
+        f"GiB above the {base / 2**30:.2f} GiB corpus); codes {index.codes.nbytes} bytes")
+    if index.codes.shape != (SCALE_ROWS, 32) or int(index.list_offsets[-1]) != SCALE_ROWS or \
+            np.bincount(index.perm, minlength=SCALE_ROWS).min() != 1:
+        raise AssertionError("ivf-pq: the 10M index is not a permutation of its rows")
+    lists, _ = row_lists(index)
+    n_chk = _chunk_rows(SCALE_ROWS, nlist, 32)
+    rows = np.sort(np.random.default_rng(SEED + 4).choice(SCALE_ROWS, n_chk, replace=False))
+    xs = big[torch.from_numpy(rows).to(dev)]
+    cents = torch.from_numpy(index.centroids).to(dev)
+    a = kmeans._assign(xs, cents)
+    codes = pq_encode(xs - cents[a], index.pq)
+    inv = np.empty(SCALE_ROWS, np.int64)
+    inv[index.perm] = np.arange(SCALE_ROWS)
+    same_list = float((a.cpu().numpy() == lists[rows]).mean())
+    same_code = float((codes == index.codes[inv[rows]]).mean())
+    log(f"ivf-pq: 10M: {n_chk} sampled rows' lists and codes recomputed by the separate passes: "
+        f"{same_list:.6f} / {same_code:.6f} equal")
+    if same_list < AGREE or same_code < AGREE:
+        raise AssertionError("ivf-pq: the 10M fused pass disagrees with the separate passes")
+    del big, xs, index
+    torch.cuda.empty_cache()
+
+
+def served_from_mmap(results, queries, model) -> float:
+    """Max |served distance - (1 - row . q)| over every hit, the row read
+    from the workspace's vector file; raises above 1e-6."""
+    import numpy as np
+
+    from semtools_tpu_torch.store import Workspace
+    from semtools_tpu_torch.store.store import Store
+
+    q = model.encode(queries).cpu().numpy()
+    err = 0.0
+    with Store(Workspace.open("smoke").config.root_dir, device="cpu") as store:
+        start = {p: st for p, st, _ in store._valid_ranges()}
+        mm = store._mmap("r")
+        for qi, rs in enumerate(results):
+            for r in rs:
+                row = np.asarray(mm[start[r["filename"]] + r["match_line_number"]])
+                err = max(err, abs(r["distance"] - float(1.0 - row @ q[qi])))
+        del mm
+    if not err <= 1e-6:
+        raise AssertionError(f"IVF-PQ hits: served distances differ from the vector file by {err}")
+    return err
+
+
+def ann_steps(files, qfile, subset, model, corpus, starts):
+    """The IVF-PQ tier on the workspace (``SEMTOOLS_TPU_FORCE_ANN=1``):
+    ``workspace index --force -j`` built on the card; ``status``; a ``-Q`` 8
+    search (distances from the vector file; recall@10 against the exact
+    scan of ``corpus``); the 300-file subset (the compact path: exact, the
+    fused kernels launched, counts reset just before); ``workspace compact``
+    (remapped; the next search names ``ivf-pq`` with the same hits); a
+    one-line edit served through the delta without a rebuild."""
+    import numpy as np
+
+    from semtools_tpu_torch.ops import kernels
+    from semtools_tpu_torch.ops.scan import _topk_chunk
+    from semtools_tpu_torch.store import Workspace
+    from semtools_tpu_torch.store.store import Store
+
+    common = ["-w", "smoke", "--top-k", "10", "-j"]
+    root = Path(Workspace.open("smoke").config.root_dir)
+    n_lines = N_FILES * LINES_PER_FILE
+    os.environ["SEMTOOLS_TPU_FORCE_ANN"] = "1"
+    try:
+        kernels.reset_launch_counts()
+        out, err, wall, stages = run_cli(["workspace", "index", "smoke", "--force", "-j"])
+        report = json.loads(out)
+        if report != {"workspace": "smoke", "index_type": "ivf-pq", "built": True,
+                       "total_lines": n_lines} or "(device backend)" not in err:
+            raise AssertionError(f"workspace index --force: {report} / {err[-500:]!r}")
+        log(f"ivf-pq: workspace index --force -j: {wall:.3f} s wall; stages: {stages}; "
+            f"kernel launches {sum(kernels.launch_counts().values())}")
+        text = run_cli(["workspace", "status", "smoke"])[0]
+        if "Index: Yes (ivf-pq)" not in text:
+            raise AssertionError(f"workspace status under the forced IVF-PQ tier: {text!r}")
+        with np.load(root / "ann.npz") as z:
+            nlist = z["centroids"].shape[0]
+        nprobe = nlist if n_lines <= 1 << 16 else max(16, nlist // 16)  # the store's rule at k 10
+        log(f"ivf-pq: status names ivf-pq; nlist {nlist}, nprobe {nprobe}, probed pool "
+            f"~{n_lines * nprobe // nlist} rows, ADC cut "
+            f"{Store._ann_candidate_depth(10, n_lines, nlist, nprobe)}")
+
+        ref_d, ref_i = _topk_chunk(model.encode(QUERIES), corpus, 0, corpus.shape[0], 10)
+        kth = ref_d[:, -1].cpu().numpy()  # each query's exact 10th distance
+        pos = {f: i for i, f in enumerate(files)}
+        for probe in (None, str(nlist // 4)):  # the store's rule, then a quarter of the lists
+            if probe:
+                os.environ["SEMTOOLS_TPU_ANN_NPROBE"] = probe
+            try:
+                out, err, wall, stages = run_cli(["search", "-Q", qfile, *files, *common])
+            finally:
+                os.environ.pop("SEMTOOLS_TPU_ANN_NPROBE", None)
+            if "Updating workspace" in err or "Building IVF-PQ" in err:
+                raise AssertionError(f"ivf-pq -Q 8: updated or rebuilt: {err[-500:]!r}")
+            batch = [json.loads(x)["results"] for x in out.splitlines() if x.strip()]
+            d_err = served_from_mmap(batch, QUERIES, model)
+            recall = np.mean([len({int(starts[pos[r["filename"]]]) + r["match_line_number"]
+                                   for r in rs} & set(ref_i[qi].tolist())) / 10
+                              for qi, rs in enumerate(batch)])
+            # rows at the same distance (equal lines) are equally right answers
+            as_good = np.mean([sum(r["distance"] <= kth[qi] + TOL for r in rs) / 10
+                               for qi, rs in enumerate(batch)])
+            log(f"ivf-pq: search -w -Q 8 (nprobe {probe or nprobe}): {wall:.3f} s wall; stages: "
+                f"{stages}; distances equal the vector file's (max |d| err {d_err:.3g}); "
+                f"recall@10 against the exact scan {recall:.4f} by row, {as_good:.4f} by "
+                f"distance (hits no farther than the exact 10th)")
+        busy, wall_ms, _ = device_busy(lambda: run_cli(["search", QUERIES[0], *files, *common]))
+        log(f"ivf-pq: warm search -w under torch.profiler: device busy {busy:.3f} ms of "
+            f"{wall_ms:.1f} ms wall ({100 * busy / wall_ms:.2f}%)")
+
+        kernels.reset_launch_counts()
+        out, _, wall, stages = run_cli(["search", QUERIES[2], *subset, *common])
+        launches_of(F32_PATH, "ivf-pq store, 300-file subset")
+        n_sub = SUBSET_FILES * LINES_PER_FILE
+        d_err = check_hits([json.loads(out)["results"]], QUERIES[2:3], model, corpus[:n_sub],
+                           starts, subset, 10)
+        log(f"ivf-pq: {SUBSET_FILES}-file subset (compact path, exact): {wall:.3f} s wall; "
+            f"stages: {stages}; hits equal the plain scan (max |d| err {d_err:.3g})")
+
+        before = run_cli(["search", QUERIES[0], *files, *common])[0]
+        out, _, wall, _ = run_cli(["workspace", "compact", "smoke", "-j"])
+        report = json.loads(out)
+        if not report["index_remapped"] or report["slots_reclaimed"] != LINES_PER_FILE:
+            raise AssertionError(f"workspace compact under the IVF-PQ tier: {report}")
+        log(f"ivf-pq: workspace compact: {wall:.3f} s wall; {report}")
+        after, _, wall, stages = run_cli(["search", QUERIES[0], *files, *common])
+        text = run_cli(["workspace", "status", "smoke"])[0]
+        if after != before or "Index: Yes (ivf-pq)" not in text:
+            raise AssertionError("ivf-pq: after compact, another answer or tier "
+                                 f"({text.splitlines()[3:4]})")
+        log(f"ivf-pq: search -w after compact: {wall:.3f} s wall; stages: {stages}; ivf-pq, "
+            f"the same hits")
+
+        meta = root / "ann_meta.npz"
+        mtime = meta.stat().st_mtime_ns
+        edit = (11, 20, "river mountain forest under the morning fog")
+        lines = Path(files[edit[0]]).read_text().split("\n")
+        lines[edit[1]] = edit[2]
+        Path(files[edit[0]]).write_text("\n".join(lines))
+        out, err, wall, stages = run_cli(["search", QUERIES[4], *files, *common])
+        hits = json.loads(out)["results"]
+        with Store(str(root), device="cpu") as store:
+            changed, _, drift = store._ann_layout_diff(store._ann_meta_light()[1])
+            delta = len(store._ann_current()[4])
+        if "Building IVF-PQ" in err or meta.stat().st_mtime_ns != mtime or \
+                [c[0] for c in changed] != [files[edit[0]]] or delta != LINES_PER_FILE:
+            raise AssertionError(f"ivf-pq edit: rebuilt or not reconciled ({changed}, {delta})")
+        if (files[edit[0]], edit[1]) not in [(r["filename"], r["match_line_number"]) for r in hits]:
+            raise AssertionError("ivf-pq edit: the edited line is not among the hits")
+        d_err = served_from_mmap([hits], QUERIES[4:5], model)
+        log(f"ivf-pq: one-line edit, then search -w: {wall:.3f} s wall; stages: {stages}; no "
+            f"rebuild (meta untouched), 1 document ({delta} rows) in the delta, drift {drift} "
+            f"rows; the edited line served (max |d| err {d_err:.3g})")
+    finally:
+        os.environ.pop("SEMTOOLS_TPU_FORCE_ANN")
+
+
 def main() -> int:
     if not (REPO / "semtools_tpu_torch").is_dir() or not (REPO / "cpp").is_dir():
         print("error: run chip_smoke.py from a checkout of the repository", file=sys.stderr)
@@ -1386,6 +1712,9 @@ def main() -> int:
     os.environ.update(SEMTOOLS_TPU_ALLOW_FALLBACK="1", SEMTOOLS_TPU_NO_FETCH="1",
                       SEMTOOLS_TPU_TIMINGS="1")
     os.environ.pop("SEMTOOLS_WORKSPACE", None)
+    t0 = time.perf_counter()
+    ivf_pq_index_phase(dev)
+    log(f"ivf-pq: index layer done in {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory(prefix="semtools_smoke_") as tmp:
         root = Path(tmp)
         t0 = time.perf_counter()

@@ -9,15 +9,16 @@ see :func:`semtools_tpu_torch.utils.platform.resolve_device`)::
         [-m DIST] [-i] [-j] [-Q QUERIES_FILE] [-w WORKSPACE] [--model-path P]
         [--device D]
     python -m semtools_tpu_torch.cli workspace [-j] use|status|prune|compact [NAME]
+    python -m semtools_tpu_torch.cli workspace [-j] index [NAME] [--force]
     python -m semtools_tpu_torch.cli daemon [run|start|stop|status] [--device D]
 
 ``search`` runs in workspace mode when ``-w`` or ``SEMTOOLS_WORKSPACE``
 names a workspace (the JAX package's on-disk workspaces, shared by both
 packages). When this package's daemon runs (``daemon start``), every command
 but ``daemon`` is forwarded to it before torch is imported
-(``SEMTOOLS_TPU_DAEMON=off`` runs it here). ``workspace index`` and the
-``parse`` and ``ask`` commands are not ported yet: they exit 1 with a message
-rather than run a different mode.
+(``SEMTOOLS_TPU_DAEMON=off`` runs it here). The ``parse`` and ``ask``
+commands are not ported yet: they exit 1 with a message rather than run a
+different mode.
 """
 
 from __future__ import annotations
@@ -339,6 +340,40 @@ def workspace_compact_cmd(args) -> int:
                 f"Compacted {report['rows_live']} lines: reclaimed "
                 f"{report['slots_reclaimed']} of {report['slots_before']} slots."
             )
+        if report["index_remapped"]:
+            print("IVF-PQ index remapped in place (no rebuild needed).")
+    return 0
+
+
+def workspace_index_cmd(args) -> int:
+    from semtools_tpu_torch.store import Store, Workspace
+
+    Workspace.active(args.name)
+    ws = Workspace.open(args.name)
+    with Store(ws.config.root_dir) as store:
+        index = store.build_ann_index(force=args.force, verbose=True)
+        stats = store.get_stats()
+    if args.json:
+        print(json_mode.dumps({
+            "workspace": ws.config.name,
+            "index_type": stats.index_type,
+            "built": index is not None,
+            "total_lines": stats.total_lines,
+        }))
+    elif index is not None and stats.index_type == "ivf-pq":
+        print(f"Index ready: ivf-pq serving {stats.total_lines} lines")
+    elif index is not None:
+        print(
+            f"IVF-PQ index built (capacity fallback); corpus fits "
+            f"on-device so '{stats.index_type}' serves "
+            f"{stats.total_lines} lines"
+        )
+    else:
+        print(
+            f"Corpus fits the device tiers ('{stats.index_type}' over "
+            f"{stats.total_lines} lines); no ANN index needed "
+            "(pass --force to build the capacity fallback anyway)"
+        )
     return 0
 
 
@@ -399,12 +434,6 @@ def daemon_cmd(args) -> int:
     return 0
 
 
-def workspace_not_ported_cmd(args) -> int:
-    print(f"Error: 'workspace {args.wcmd}' is not ported yet (see ROADMAP.md)",
-          file=sys.stderr)
-    return 1
-
-
 def build_parser() -> argparse.ArgumentParser:
     from semtools_tpu_torch import __version__
 
@@ -451,8 +480,7 @@ def build_parser() -> argparse.ArgumentParser:
         ("use", "Use or create a workspace", workspace_use_cmd),
         ("status", "Show active workspace and stats", workspace_status_cmd),
         ("prune", "Remove stale files from store", workspace_prune_cmd),
-        ("index", "Build or refresh the IVF-PQ ANN index (not ported yet)",
-         workspace_not_ported_cmd),
+        ("index", "Build or refresh the IVF-PQ ANN index", workspace_index_cmd),
         ("compact", "Reclaim slot space left by deleted/rewritten documents",
          workspace_compact_cmd),
     ):
@@ -462,7 +490,8 @@ def build_parser() -> argparse.ArgumentParser:
         else:
             a.add_argument("name", nargs="?", default=None)
         if action == "index":
-            a.add_argument("-f", "--force", action="store_true")
+            a.add_argument("-f", "--force", action="store_true",
+                           help="Build even below the corpus-size threshold")
         a.add_argument("-j", "--json", action="store_true", default=argparse.SUPPRESS)
         a.set_defaults(func=func)
 

@@ -315,9 +315,10 @@ def _workspace_update(files, model, config, store) -> None:
         )
         store.upsert_document_metadata(metas)
 
-    # The IVF-PQ capacity tier: a no-op while the corpus fits the device
-    # tiers; a store that needs it raises (not ported yet).
-    store.build_ann_index(verbose=True)
+    # Refresh the IVF-PQ capacity tier when the corpus is too big for the
+    # device tiers (a no-op otherwise or when already fresh).
+    with stage("ann_build"):
+        store.build_ann_index(verbose=True)
 
 
 def search_with_workspace_batched(

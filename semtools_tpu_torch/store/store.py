@@ -10,7 +10,10 @@ over as it is, so the two packages read and write the same workspace:
 - document metadata (path, size, mtime, version, slot range, vec_rev) and
   the free-range list live in sqlite (``store.sqlite``), with the same
   schema, copy-on-write upserts, generation counter and flock-based
-  writer lock.
+  writer lock;
+- the IVF-PQ capacity tier lives in ``ann.npz`` (the index) and
+  ``ann_meta.npz`` (build generation, slots, build-time layout), published
+  as a pair tied by a build token; either package reads the other's.
 
 The serving side runs on one torch device (:attr:`Store.device`, resolved
 lazily: ``cuda`` unless ``cpu`` is asked for; ``workspace status`` never
@@ -25,19 +28,28 @@ of ``csrc/int4_scan.cu``, plain and masked: every row within a noise margin
 of each query's quantized ``k_cut``-th best) with the same re-rank; or the
 reduced-64d/32d rungs (``ops/reduce.py``: the rows projected to int8 with a
 residual-norm column, scored through the plain scan by the per-row
-optimistic bound, with the same growth and re-rank).
+optimistic bound, with the same growth and re-rank). A whole-store query on
+the IVF-PQ tier (a corpus no device rung fits, or
+``SEMTOOLS_TPU_FORCE_ANN=1``) with a current index is served by the index
+(``index/ivf_pq.py``: the probe and the exact re-rank on the host), its
+mutations since the build reconciled as tombstones and a delta segment; the
+index is built on :attr:`Store.device` (``SEMTOOLS_TPU_ANN_BUILD=host``
+builds it on the CPU).
 Other path subsets gather their rows and scan them on the device (the
 compact path). ``SEMTOOLS_TPU_SCAN=host`` scores on the host from the mmap;
 ``auto`` means the device (the JAX package's link-probe placement is not
-ported). When the policy names a tier the port does not have yet (IVF-PQ,
-sharded), the store raises :class:`NotPortedError` rather than serve another
-tier in its place. :meth:`Store.compact` rewrites the slot space densely into
-the next epoch of the vector file, byte for byte as the JAX package does.
+ported). Sharded serving is not ported: asking for it raises
+:class:`NotPortedError` rather than serve another tier in its place.
+:meth:`Store.compact` rewrites the slot space densely into the next epoch of
+the vector file, byte for byte as the JAX package does, and remaps a fresh
+IVF-PQ index in place.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import re
 import sqlite3
 from dataclasses import dataclass
 from pathlib import Path
@@ -57,6 +69,8 @@ LINE_EMBEDDING_SIZE = 256
 _VECTORS_FILE = "lines.f32"
 _HASH_FILE = "lines.h64"
 _DB_FILE = "store.sqlite"
+_ANN_FILE = "ann.npz"
+_ANN_META_FILE = "ann_meta.npz"
 
 
 class NotPortedError(RuntimeError):
@@ -232,6 +246,11 @@ class Store:
         self._refresh_vec_paths()
         if not self.vec_path.exists():
             self.vec_path.touch()
+        # IVF-PQ state: (meta mtime, loaded index) from disk, (meta mtime,
+        # light meta), (generation, reconciled serving state)
+        self._ann_disk_cache = None
+        self._ann_meta_cache = None
+        self._ann_cache = None
 
     @property
     def device(self) -> torch.device:
@@ -820,10 +839,9 @@ class Store:
 
     def _served_kind(self, n_rows: int) -> Tuple[str, Optional[int]]:
         """(kind, reduced_dim) of the whole-store device tier the policy
-        picks (:meth:`_device_kind`); raises :class:`NotPortedError` for the
-        tiers the port has not yet (IVF-PQ, sharded)."""
-        if self._use_ann_tier(n_rows):
-            raise NotPortedError("the IVF-PQ serving tier")
+        picks (:meth:`_device_kind`), also on the IVF-PQ tier when no index
+        is current, as the JAX package serves it; raises
+        :class:`NotPortedError` for sharded serving."""
         _sharded_enabled(n_rows)
         return self._device_kind(n_rows)
 
@@ -834,20 +852,525 @@ class Store:
             n_rows = self.count_line_embeddings()
         if os.environ.get("SEMTOOLS_TPU_SCAN", "").lower() == "host":
             return "host-mmap-scan"
+        if self._use_ann_tier(n_rows) and self._ann_available():
+            return "ivf-pq"
         kind, rd = self._served_kind(n_rows)
         if kind == "f32":
             return "exact-mxu-scan"
         return f"{kind}-mxu-scan" + (f"-reduced{rd}d" if rd else "")
 
+    # -- ANN tier (IVF-PQ) -------------------------------------------------
+    #
+    # The last capacity rung: the exact device tiers serve by default and
+    # IVF-PQ takes over for corpora no device rung fits. The index is keyed
+    # to the store's generation counter; mutations since the build are
+    # reconciled at query time (tombstones + a delta segment) up to the
+    # drift bound, past which the exact tiers serve until a rebuild. The
+    # on-disk pair and every rule below are the JAX package's, so either
+    # package serves, reconciles and compacts the other's index.
+
+    def _ann_paths(self) -> Tuple[Path, Path]:
+        return self.dir / _ANN_FILE, self.dir / _ANN_META_FILE
+
+    def _sweep_ann_tmp_files(self) -> None:
+        """Unlink ``*.tmp<pid>.npz`` ANN build leftovers whose building
+        process is gone — a crash between tmp creation and the atomic
+        rename orphans an index-sized file that nothing else cleans
+        (the epoch sweep only globs ``lines.*``). Live builds' tmps
+        (concurrent build from another process) are left alone."""
+        pat = re.compile(r"\.tmp(\d+)\.npz$")
+        for ann_or_meta in self._ann_paths():
+            for t in self.dir.glob(ann_or_meta.stem + ".tmp*.npz"):
+                m = pat.search(t.name)
+                if not m:
+                    continue
+                pid = int(m.group(1))
+                if pid == os.getpid():
+                    continue
+                try:
+                    os.kill(pid, 0)
+                except ProcessLookupError:
+                    with contextlib.suppress(OSError):
+                        t.unlink()
+                except OSError:
+                    pass  # EPERM: pid exists under another uid — leave it
+
+    def _ann_generation_matches(self) -> bool:
+        """Cheap freshness probe: reads only the generation scalar (npz
+        members load lazily), never the codes/slots arrays."""
+        ann_path, meta_path = self._ann_paths()
+        if not (ann_path.exists() and meta_path.exists()):
+            return False
+        try:
+            with np.load(meta_path) as meta:
+                return int(meta["generation"]) == self.generation()
+        except Exception:
+            return False
+
+    # Rebuild once cumulative changed+removed rows exceed this fraction of
+    # the indexed corpus — below it, mutations serve through the delta.
+    _ANN_DRIFT_DENOM = 4
+
+    def _ann_layout_diff(self, build_layout: Dict[str, Tuple[int, int, int]]):
+        """(changed ranges, removed ranges, drift rows) between the
+        index's build-time layout and the store's CURRENT layout. Cheap:
+        one sqlite read + dict compares — no row I/O, no encoding."""
+        new_layout = {p: (s, n, r) for p, s, n, r in self._layout_with_rev()}
+        changed = [
+            (p, v[0], v[1]) for p, v in new_layout.items()
+            if build_layout.get(p) != v
+        ]
+        removed = [
+            (v[0], v[1]) for p, v in build_layout.items()
+            if new_layout.get(p) != v
+        ]
+        # Drift counts what incremental serving pays for: DELTA rows
+        # (ADC-scored per query) plus rows of documents gone entirely. A
+        # rewritten document's freed old range is a tombstone (one range
+        # bisect per probe), not per-row work.
+        drift = sum(n for _, _, n in changed) + sum(
+            v[1] for p, v in build_layout.items() if p not in new_layout
+        )
+        return changed, removed, drift
+
+    def _ann_load_meta(self):
+        """(index, build generation, slots, build layout) from disk,
+        instance-cached keyed on the meta file's mtime — another process
+        rebuilding the index on disk must be picked up (PQ codes for a
+        big corpus cost real I/O, so the cache matters)."""
+        ann_path, meta_path = self._ann_paths()
+        if not (ann_path.exists() and meta_path.exists()):
+            return None
+        try:
+            mtime = meta_path.stat().st_mtime_ns
+        except OSError:
+            return None
+        cached = self._ann_disk_cache
+        if cached is not None and cached[0] == mtime:
+            return cached[1]
+        # Order matters: read the small meta npz and check the build token
+        # BEFORE loading the PQ codes, and cache a torn pair as a NEGATIVE
+        # result keyed on the same mtime — a crash between the paired
+        # renames leaves the mismatch on disk until the next rebuild, and
+        # every query must not re-read the codes to re-discover it.
+        try:
+            with np.load(meta_path, allow_pickle=False) as meta:
+                m = {k: meta[k] for k in meta.files}
+        except Exception:
+            self._ann_disk_cache = (mtime, None)
+            return None
+        if not self._ann_tokens_match(ann_path, m):
+            self._ann_disk_cache = (mtime, None)
+            return None  # torn publish: index and meta from different builds
+        try:
+            from semtools_tpu_torch.index.ivf_pq import IvfPqIndex
+
+            index = IvfPqIndex.load(str(ann_path))
+        except Exception:
+            self._ann_disk_cache = (mtime, None)
+            return None
+        if "lay_paths" in m:
+            layout = {
+                str(p): (int(s), int(n), int(r))
+                for p, s, n, r in zip(
+                    m["lay_paths"], m["lay_starts"], m["lay_lens"], m["lay_revs"]
+                )
+            }
+        else:
+            layout = None  # pre-incremental meta: exact-generation only
+        state = (index, int(m["generation"]), m["slots"], layout)
+        self._ann_disk_cache = (mtime, state)
+        return state
+
+    @staticmethod
+    def _ann_tokens_match(ann_path: Path, meta: Dict) -> bool:
+        """True when the index and meta files carry the same build token
+        (or both predate tokens). Reading one scalar member of the index
+        npz touches the zip directory plus a few bytes — never the codes."""
+        meta_tok = meta.get("build_token")
+        try:
+            with np.load(ann_path, allow_pickle=False) as z:
+                ann_tok = z["build_token"] if "build_token" in z.files else None
+        except Exception:
+            return False
+        if meta_tok is None and ann_tok is None:
+            return True  # legacy pair (pre-token builds)
+        return (
+            meta_tok is not None
+            and ann_tok is not None
+            and int(meta_tok) == int(ann_tok)
+        )
+
+    def _ann_meta_light(self):
+        """(build generation, build layout|None, indexed row count) from
+        the meta npz WITHOUT touching the PQ codes — `workspace status`
+        on a 10M-row store must not read hundreds of MB to name a tier.
+        Cached keyed on the meta file's mtime."""
+        ann_path, meta_path = self._ann_paths()
+        if not (ann_path.exists() and meta_path.exists()):
+            return None
+        try:
+            mtime = meta_path.stat().st_mtime_ns
+        except OSError:
+            return None
+        cached = self._ann_meta_cache
+        if cached is not None and cached[0] == mtime:
+            return cached[1]
+        try:
+            with np.load(meta_path, allow_pickle=False) as meta:
+                gen = int(meta["generation"])
+                tok = (
+                    {"build_token": meta["build_token"]}
+                    if "build_token" in meta.files else {}
+                )
+                if "lay_paths" in meta.files:
+                    lens = meta["lay_lens"]
+                    layout = {
+                        str(p): (int(s), int(n), int(r))
+                        for p, s, n, r in zip(
+                            meta["lay_paths"], meta["lay_starts"],
+                            lens, meta["lay_revs"],
+                        )
+                    }
+                    n_rows = int(lens.sum())
+                else:
+                    layout = None
+                    n_rows = int(meta["slots"].shape[0])
+        except Exception:
+            return None
+        if not self._ann_tokens_match(ann_path, tok):
+            return None  # torn publish mid-rebuild: not servable
+        out = (gen, layout, n_rows)
+        self._ann_meta_cache = (mtime, out)
+        return out
+
+    def _ann_available(self) -> bool:
+        """Cheap serving-tier probe: an index exists and is either at the
+        current generation or within the incremental drift bound (judged
+        against the INDEXED row count from the meta, not the live count).
+        Never reads the PQ codes."""
+        light = self._ann_meta_light()
+        if light is None:
+            return False
+        build_gen, layout, indexed_rows = light
+        if build_gen == self.generation():
+            return True
+        if layout is None:
+            return False
+        _, _, drift = self._ann_layout_diff(layout)
+        return drift <= indexed_rows // self._ANN_DRIFT_DENOM
+
+    def _ann_current(self):
+        """The ANN serving state reconciled to the CURRENT generation, or
+        None (no index, or drift past the rebuild bound).
+
+        Instead of staling the whole index on any mutation, the build-time
+        layout is diffed against the current one: removed build rows
+        become TOMBSTONE ranges (filtered from probe candidates), and
+        changed/new rows are ADC-encoded under the frozen quantizers into a
+        DELTA segment scored alongside the probe. Nothing is persisted: a
+        reconcile always diffs build->current, so a cold process needs no
+        delta journal, and the per-generation instance cache keeps warm
+        serving free. The state is ``(index, slots, rm_starts, rm_ends,
+        delta_slots, delta_lists, delta_codes)``.
+        """
+        gen = self.generation()
+        cached = self._ann_cache
+        if cached is not None and cached[0] == gen:
+            return cached[1]
+        loaded = self._ann_load_meta()
+        if loaded is None:
+            return None
+        index, build_gen, slots, layout = loaded
+        if build_gen == gen:
+            state = (index, slots,
+                     np.zeros(0, np.int64), np.zeros(0, np.int64),  # rm ranges
+                     np.zeros(0, np.int64),                          # delta slots
+                     np.zeros(0, np.int64),                          # delta lists
+                     np.zeros((0, index.pq.m), np.uint8))            # delta codes
+            self._ann_cache = (gen, state)
+            return state
+        if layout is None:
+            return None
+        changed, removed, drift = self._ann_layout_diff(layout)
+        if drift > len(slots) // self._ANN_DRIFT_DENOM:
+            return None
+        rm = sorted((int(s), int(s) + int(n)) for s, n in removed)
+        rm_starts = np.array([a for a, _ in rm], np.int64)
+        rm_ends = np.array([b for _, b in rm], np.int64)
+        d_slots: List[np.ndarray] = []
+        d_lists: List[np.ndarray] = []
+        d_codes: List[np.ndarray] = []
+        if changed:
+            mm = self._mmap("r")
+            if mm is None:
+                return None
+            for _, s, n in changed:
+                lists, codes = index.encode_rows(np.asarray(mm[s : s + n]))
+                d_slots.append(np.arange(s, s + n, dtype=np.int64))
+                d_lists.append(lists)
+                d_codes.append(codes)
+            del mm
+        state = (
+            index, slots, rm_starts, rm_ends,
+            np.concatenate(d_slots) if d_slots else np.zeros(0, np.int64),
+            np.concatenate(d_lists) if d_lists else np.zeros(0, np.int64),
+            np.concatenate(d_codes) if d_codes else np.zeros((0, index.pq.m), np.uint8),
+        )
+        self._ann_cache = (gen, state)
+        return state
+
+    @staticmethod
+    def _ann_nlist(n_rows: int) -> int:
+        """Coarse-list count: ~4*sqrt(n), a power of two, capped at 4096
+        (the JAX package's rule, so both packages build the same shape)."""
+        return int(min(
+            4096, max(16, 1 << int(np.log2(max(4 * np.sqrt(n_rows), 16))))
+        ))
+
+    def _gen_layout_snapshot(self) -> Tuple[int, List[Tuple[str, int, int, int]]]:
+        """(generation, layout) read in ONE sqlite transaction, so a
+        writer in another process cannot land between the two reads (WAL
+        gives the transaction snapshot isolation). The ANN build stamps
+        this pair into its meta — they must describe the same instant."""
+        try:
+            self.db.execute("BEGIN")
+        except sqlite3.OperationalError:
+            # already inside a transaction: reads share its snapshot
+            return self.generation(), self._layout_with_rev()
+        try:
+            return self.generation(), self._layout_with_rev()
+        finally:
+            self.db.commit()
+
+    class _SlotRows:
+        """Lazy row gather over (mmap, slots): the build touches one chunk
+        at a time, so a 10M-row corpus never materializes in RAM."""
+
+        def __init__(self, mm, slots):
+            self._mm, self._slots = mm, slots
+
+        @property
+        def shape(self):
+            return (len(self._slots), self._mm.shape[1])
+
+        def __getitem__(self, idx):
+            return np.asarray(self._mm[self._slots[idx]])
+
+        def __array__(self, dtype=None, copy=None):
+            out = np.asarray(self._mm[self._slots])
+            return out.astype(dtype) if dtype is not None else out
+
+    def _ann_build_device(self) -> torch.device:
+        """Where the index is built: the store's device, or the CPU under
+        ``SEMTOOLS_TPU_ANN_BUILD=host`` (or ``cpu``), the variable the JAX
+        package reads. Nothing moves to the CPU on its own."""
+        mode = os.environ.get("SEMTOOLS_TPU_ANN_BUILD", "auto").lower()
+        return torch.device("cpu") if mode in ("host", "cpu") else self.device
+
     def build_ann_index(self, force: bool = False, verbose: bool = False):
-        """The IVF-PQ capacity tier: nothing to do while the corpus fits the
-        device tiers (the JAX package returns None then too); a store that
-        needs it raises :class:`NotPortedError`."""
-        del verbose
+        """Build (or refresh) the IVF-PQ capacity tier over all stored
+        vectors, on :meth:`_ann_build_device`.
+
+        Returns the index, or None when the corpus would not be served by
+        the ANN tier (it fits on-device — see :meth:`_use_ann_tier`) and
+        ``force`` is unset. Safe to call repeatedly — a fresh index is a
+        no-op, and so, unless ``force`` is set, is one that mutations left
+        within the drift bound: it serves through the reconcile (the JAX
+        package rebuilds it; the answers are the same). Memory stays
+        O(chunk + codes) on the host, whatever the corpus size. A device
+        error raises (the tmp files are unlinked).
+        """
+        from semtools_tpu_torch.utils.tracing import stage
+
+        if self._ann_generation_matches():
+            loaded = self._ann_load_meta()
+            if loaded is not None:
+                return loaded[0]
         n = self.count_line_embeddings()
         if n == 0 or (not force and not self._use_ann_tier(n)):
             return None
-        raise NotPortedError("the IVF-PQ serving tier (workspace index)")
+        if not force and self._ann_available():
+            loaded = self._ann_load_meta()
+            if loaded is not None:
+                return loaded[0]
+        from semtools_tpu_torch.index.ivf_pq import IvfPqIndex
+
+        # Snapshot (generation, layout) BEFORE the build and stamp exactly
+        # this snapshot into the meta: a mutation landing mid-build then
+        # reads as build->current drift and serves through tombstones + the
+        # delta (_ann_current). Re-reading the generation at save time would
+        # mark a mid-build mutation exactly-fresh and serve its pre-mutation
+        # rows indefinitely.
+        build_gen, lay = self._gen_layout_snapshot()
+        slots = np.concatenate(
+            [np.arange(s, s + ln, dtype=np.int64) for _, s, ln, _ in lay]
+        )
+        mm = self._mmap("r")
+        x = self._SlotRows(mm, slots)
+        dev = self._ann_build_device()
+        progress = None
+        if verbose:
+            import sys
+
+            backend = "cpu" if dev.type == "cpu" else "device"
+            print(
+                f"Building IVF-PQ index over {n} lines ({backend} backend)...",
+                file=sys.stderr,
+            )
+
+            def progress(msg: str) -> None:
+                # a 10M-row build runs for a while: silence reads as a hang
+                print(f"  {msg}", file=sys.stderr, flush=True)
+        nlist = self._ann_nlist(n)
+        # PQ subspaces must divide the dim: 32 at the production dim 256
+        # (8 dims a byte); other dims take their largest divisor <= 32.
+        m = max(j for j in range(1, min(32, self.dim) + 1) if self.dim % j == 0)
+        index = IvfPqIndex.build(
+            x, nlist=nlist, m=m, keep_vectors=False, progress=progress, device=dev
+        )
+        del mm
+        ann_path, meta_path = self._ann_paths()
+        # Atomic paired publish: each file lands via tmp+rename, and a
+        # shared random token ties the pair together — a reader between the
+        # two renames (new index, old meta) sees a token mismatch and keeps
+        # serving the exact tiers instead of pairing slots/layout from a
+        # different build.
+        token = int.from_bytes(os.urandom(8), "big", signed=True)
+        # pid-unique tmp names: builds hold no write lock (writers must not
+        # wait on a build), so two concurrent builds must not write over
+        # each other's tmp files. Dead processes' tmps are swept here; our
+        # own are unlinked on any failure below (a no-op after replace()).
+        self._sweep_ann_tmp_files()
+        tmp_ann = ann_path.with_suffix(f".tmp{os.getpid()}.npz")
+        tmp_meta = meta_path.with_suffix(f".tmp{os.getpid()}.npz")
+        try:
+            with stage("ann_publish"):
+                index.save(str(tmp_ann), extra={"build_token": np.int64(token)})
+                tmp_ann.replace(ann_path)
+                # the build-time LAYOUT funds incremental serving (see
+                # _ann_current)
+                np.savez(
+                    tmp_meta, generation=build_gen, build_token=np.int64(token),
+                    slots=slots,
+                    lay_paths=np.array([p for p, _, _, _ in lay]),
+                    lay_starts=np.array([s2 for _, s2, _, _ in lay], np.int64),
+                    lay_lens=np.array([n2 for _, _, n2, _ in lay], np.int64),
+                    lay_revs=np.array([r2 for _, _, _, r2 in lay], np.int64),
+                )
+                tmp_meta.replace(meta_path)
+        finally:
+            for t in (tmp_ann, tmp_meta):
+                with contextlib.suppress(OSError):
+                    t.unlink()
+        self._ann_disk_cache = None
+        self._ann_meta_cache = None
+        self._ann_cache = None
+        return index
+
+    @staticmethod
+    def _ranked_from_slots(ranges, cand_slots, distances, order) -> List[RankedLine]:
+        """Map selected candidate slots back to (path, line, distance).
+
+        ``ranges`` must be slot-ordered (path, slot_start, n_lines) rows;
+        a slot's document is found by bisecting the starts.
+        """
+        starts = np.array([s2 for _, s2, _ in ranges], dtype=np.int64)
+        out: List[RankedLine] = []
+        for oi in order:
+            slot = int(cand_slots[oi])
+            ri = int(np.searchsorted(starts, slot, side="right")) - 1
+            path, s2, _ = ranges[ri]
+            out.append(
+                RankedLine(path=path, line_number=slot - s2, distance=float(distances[oi]))
+            )
+        return out
+
+    @staticmethod
+    def _ann_candidate_depth(top_k: int, n: int, nlist: int, nprobe: int) -> int:
+        """ADC-cut depth for the exact re-rank, scaled with the PROBED
+        candidate pool: the 64x-k floor holds at small scale, and a cut of
+        >= pool/64 keeps the cut fraction constant as the corpus (and with
+        nlist capped at 4096, the probed pool) grows — a fixed cut loses
+        recall to ADC-cut victims inside probed lists."""
+        pool = n * nprobe // max(nlist, 1)
+        return max(64 * top_k, 256, pool // 64)
+
+    def _search_ann_batched(
+        self,
+        state,
+        query_vecs: np.ndarray,
+        top_k: int,
+        max_distance: Optional[float],
+    ) -> List[List[RankedLine]]:
+        """Whole-store queries through the index: one probe call for all
+        queries and ONE mmap open for all exact re-ranks. ``state`` is
+        :meth:`_ann_current`'s reconciled view: probe candidates from
+        removed (tombstoned) build ranges are dropped, and delta rows —
+        scored approximately under the same coarse+residual decomposition —
+        join the exact re-rank."""
+        index, slots, rm_starts, rm_ends, d_slots, d_lists, d_codes = state
+        qs = np.asarray(query_vecs, np.float32)
+        # Probe enough lists that the EXPECTED pool holds 64x-k rows: the
+        # nlist/16 floor alone visits a fixed fraction of the corpus, so a
+        # top_k comparable to the corpus would miss rows in unprobed lists.
+        avg_list = max(index.n // max(index.nlist, 1), 1)
+        nprobe = min(
+            max(16, index.nlist // 16, -(-64 * top_k // avg_list)),
+            index.nlist,
+        )
+        if index.n <= (1 << 16):
+            # Tiny corpus (forced/test configurations): probe EVERY list. On
+            # unclustered data the true nearest row's list can rank below
+            # any partial probe cut, and an exhaustive ADC scan of <= 65k
+            # rows costs about a millisecond.
+            nprobe = index.nlist
+        env_nprobe = os.environ.get("SEMTOOLS_TPU_ANN_NPROBE")
+        if env_nprobe:
+            # explicit recall/latency knob (the faiss/qdrant convention)
+            try:
+                nprobe = min(max(1, int(env_nprobe)), index.nlist)
+            except ValueError:
+                pass
+        oversample = self._ann_candidate_depth(top_k, index.n, index.nlist, nprobe)
+        _, ids = index.search(qs, k=min(oversample, index.n), nprobe=nprobe)
+        delta_top = None
+        if len(d_slots):
+            d_approx = index.score_rows(qs, d_codes, d_lists)  # [Q, Dn]
+            kd = min(oversample, len(d_slots))
+            delta_top = np.argpartition(-d_approx, kd - 1, axis=1)[:, :kd]
+        ranges = self._valid_ranges_cached()
+        mm = self._mmap("r")
+        if mm is None:
+            return [[] for _ in range(qs.shape[0])]
+        out: List[List[RankedLine]] = []
+        for r in range(qs.shape[0]):
+            idr = ids[r]
+            idr = idr[idr >= 0]  # drop padding entries from under-filled probes
+            cand_slots = slots[idr]
+            if rm_starts.size:
+                # tombstoned build rows (their doc was removed or
+                # re-written): the build-time codes are stale
+                pos = np.searchsorted(rm_starts, cand_slots, side="right") - 1
+                pos_c = np.clip(pos, 0, len(rm_starts) - 1)
+                dead = (pos >= 0) & (cand_slots < rm_ends[pos_c])
+                cand_slots = cand_slots[~dead]
+            if delta_top is not None:
+                cand_slots = np.concatenate(
+                    [cand_slots, d_slots[delta_top[r]]]
+                )
+            # slot-sorted unique candidates: the stable exact re-rank then
+            # breaks ties toward the lower slot = lower corpus position,
+            # matching the exact tiers
+            cand_slots = np.unique(cand_slots)
+            rows = np.asarray(mm[cand_slots])
+            exact = 1.0 - (rows @ qs[r])
+            order = np.argsort(exact, kind="stable")[:top_k]
+            if max_distance is not None:
+                order = order[exact[order] < max_distance]
+            out.append(self._ranked_from_slots(ranges, cand_slots, exact, order))
+        del mm
+        return out
 
     # -- generation and layout ---------------------------------------------
 
@@ -1048,6 +1571,9 @@ class Store:
             )
         except (FileNotFoundError, IndexError, ValueError):
             self._ranges_cache = None
+            self._ann_disk_cache = None
+            self._ann_meta_cache = None
+            self._ann_cache = None
             self._refresh_vec_paths()
             return self._search_batched_impl(
                 query_vecs, subset_paths, top_k, max_distance
@@ -1064,11 +1590,13 @@ class Store:
         the single-query method on every serving tier; threshold mode
         still truncates to ``top_k`` (store.rs:517,538-543).
 
-        Routes: the whole store -> its slot corpus on the device; a path
-        subset -> the same corpus under a keep mask when that pays (see
+        Routes: ``SEMTOOLS_TPU_SCAN=host`` -> the host scan of the mmap
+        (it outranks every tier, the IVF-PQ one included); the whole store
+        on the IVF-PQ tier with a current index -> the index; the whole
+        store -> its slot corpus on the device; a path subset -> the same
+        corpus under a keep mask when that pays (see
         :meth:`_search_subset_device`), else its rows gathered and scanned
-        on the device (the compact path); ``SEMTOOLS_TPU_SCAN=host`` -> the
-        host scan of the mmap.
+        on the device (the compact path).
         """
         qs = np.asarray(query_vecs, np.float32)
         if qs.ndim == 1:
@@ -1095,6 +1623,11 @@ class Store:
             hits = self._search_host(ranges, qs, top_k, max_distance)
             if hits is not None:
                 return hits
+
+        if full_store and self._use_ann_tier(n_rows):
+            state = self._ann_current()
+            if state is not None:
+                return self._search_ann_batched(state, qs, top_k, max_distance)
 
         if full_store:
             hits = self._search_slot_cached_batched(qs, top_k, max_distance, n_rows)
@@ -1707,21 +2240,28 @@ class Store:
         A cached device corpus catches up by the patch's move path (the
         rows keep their content hashes).
 
+        A FRESH IVF-PQ index survives: its rows' content is untouched
+        (bytes move, values don't), so the meta's ``slots`` and
+        ``lay_starts`` are remapped through the move map instead of forcing
+        a rebuild. A stale index is left alone: after the moves its build
+        layout matches nothing, so the drift bound retires it.
+
         Returns ``{"rows_live", "slots_before", "slots_reclaimed",
-        "index_remapped"}``; ``index_remapped`` is False (the port keeps no
-        IVF-PQ index).
+        "index_remapped"}``.
         """
         with self._write_lock():
             epoch = self._vec_epoch()
             self._delete_epoch_files(keep_epoch=epoch)
+            gen_before = self.generation()
+            ann_fresh = self._ann_generation_matches()
             layout = self._layout_with_rev()  # ascending slot order
             cap_before = self._capacity()
             total = sum(n for _, _, n, _ in layout)
-            moves: List[Tuple[str, int]] = []  # (path, new slot_start)
+            moves: List[Tuple[str, int, int, int]] = []  # path, old, new, n
             dest = 0
             for path, s, n, _ in layout:
                 if s != dest:
-                    moves.append((path, dest))
+                    moves.append((path, s, dest, n))
                 dest += n
             report = {"rows_live": total, "slots_before": cap_before,
                       "slots_reclaimed": 0, "index_remapped": False}
@@ -1755,7 +2295,7 @@ class Store:
             # The swap: one transaction, the crash-atomicity point. On any
             # failure roll back explicitly (close() commits pending work).
             try:
-                for path, dst in moves:
+                for path, _, dst, _ in moves:
                     self.db.execute("UPDATE docs SET slot_start = ? WHERE path = ?", (dst, path))
                 self.db.execute("DELETE FROM free")
                 self.db.execute(
@@ -1769,6 +2309,8 @@ class Store:
                 self.db.rollback()
                 raise
             self._refresh_vec_paths()
+            if ann_fresh:
+                report["index_remapped"] = self._ann_remap_after_compact(moves, gen_before)
             # retire the superseded epoch (safe for open reader mmaps)
             for p in self._epoch_paths(epoch):
                 try:
@@ -1776,8 +2318,47 @@ class Store:
                 except OSError:
                     pass
             self._ranges_cache = None
+            self._ann_disk_cache = None
+            self._ann_meta_cache = None
+            self._ann_cache = None
             report["slots_reclaimed"] = cap_before - total
             return report
+
+    def _ann_remap_after_compact(
+        self, moves: List[Tuple[str, int, int, int]], gen_before: int
+    ) -> bool:
+        """Shift a fresh index's slot references through the compaction
+        move map and stamp it with the post-compact generation; numpy over
+        ``ann_meta.npz`` (the PQ codes are row content: untouched)."""
+        _, meta_path = self._ann_paths()
+        if not meta_path.exists():
+            return False
+        try:
+            with np.load(meta_path, allow_pickle=False) as meta:
+                m = {k: np.array(meta[k]) for k in meta.files}
+        except Exception:
+            return False
+        if int(m.get("generation", -1)) != gen_before or "lay_paths" not in m:
+            return False
+        if moves:
+            starts = np.array([s for _, s, _, _ in moves], np.int64)
+            deltas = np.array([d - s for _, s, d, _ in moves], np.int64)
+            lens = np.array([n for _, _, _, n in moves], np.int64)
+            slots = m["slots"].astype(np.int64, copy=True)
+            idx = np.searchsorted(starts, slots, side="right") - 1
+            safe = idx.clip(min=0)
+            in_range = (idx >= 0) & (slots < starts[safe] + lens[safe])
+            m["slots"] = np.where(in_range, slots + deltas[safe], slots)
+            shift = {p: d for p, _, d, _ in moves}
+            m["lay_starts"] = np.array(
+                [shift.get(str(p), int(s)) for p, s in zip(m["lay_paths"], m["lay_starts"])],
+                np.int64,
+            )
+        m["generation"] = np.int64(self.generation())
+        tmp = meta_path.with_suffix(".tmp.npz")
+        np.savez(tmp, **m)
+        tmp.replace(meta_path)
+        return True
 
     # -- maintenance -------------------------------------------------------
 

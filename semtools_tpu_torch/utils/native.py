@@ -4,15 +4,16 @@ Counterpart of ``semtools_tpu/utils/native.py``. The library is built from
 the repository's ``cpp/`` sources into the port's own ignored build
 directory, ``semtools_tpu_torch/_build/libsemtools_native.so``, by the same
 Makefile with its output path given on the command line; nothing is read
-from or written to the JAX package's ``_native/``. The port binds only
+from or written to the JAX package's ``_native/``. The port binds
 ``hashtok_encode_batch`` (cpp/hashtok.cpp), the hashed tokenizer's fast
-path.
+path, and ``adc_scan_lists`` (cpp/adcscan.cpp), the IVF-PQ probe
+(:func:`adc_lib`).
 
 Loading is lazy: if the library is missing or older than its sources, the
 loader runs one quiet ``make`` (disable with
-``SEMTOOLS_TPU_NO_NATIVE_BUILD=1``); when that fails the tokenizer takes
-its pure-Python implementation, whose ids are identical. This is host code:
-no device work depends on it.
+``SEMTOOLS_TPU_NO_NATIVE_BUILD=1``); when that fails the tokenizer and the
+probe take their pure-Python implementations, whose answers are the same.
+This is host code: no device work depends on it.
 """
 
 from __future__ import annotations
@@ -75,6 +76,23 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_longlong,  # out capacity
         ctypes.POINTER(ctypes.c_longlong),  # out per-text offsets [n+1]
     ]
+    # Newer symbol than hashtok: bind leniently so a stale library still
+    # serves the tokenizer.
+    if not hasattr(lib, "adc_scan_lists"):
+        return
+    lib.adc_scan_lists.restype = ctypes.c_longlong
+    lib.adc_scan_lists.argtypes = [
+        ctypes.c_void_p,  # codes [n_total, m] uint8
+        ctypes.c_longlong,  # m
+        ctypes.c_void_p,  # table [m, 256] f32
+        ctypes.c_void_p,  # starts [n_lists] i64
+        ctypes.c_void_p,  # ends [n_lists] i64
+        ctypes.c_void_p,  # bias [n_lists] f32
+        ctypes.c_longlong,  # n_lists
+        ctypes.c_void_p,  # out scores [cap] f32
+        ctypes.c_void_p,  # out rows [cap] i64
+        ctypes.c_longlong,  # cap
+    ]
 
 
 def load() -> Optional[ctypes.CDLL]:
@@ -101,3 +119,9 @@ def load() -> Optional[ctypes.CDLL]:
 
 def available() -> bool:
     return load() is not None
+
+
+def adc_lib() -> Optional[ctypes.CDLL]:
+    """The library iff it carries the ADC probe (a stale build may not)."""
+    lib = load()
+    return lib if lib is not None and hasattr(lib, "adc_scan_lists") else None

@@ -7,15 +7,19 @@ compacts its own, the new epoch's vector and hash files, the sqlite rows
 byte-equal, and each package serves the other's compacted store with the
 exact hits (distances within 1e-6 of brute force). The port's compaction
 keeps the JAX package's crash and reader contracts (the scenarios of
-``tests/test_compact.py`` without the IVF-PQ index, which the port does not
-have), and a warm device corpus catches up by the patch's move path with
-the JAX package's bytes.
+``tests/test_compact.py``), and a warm device corpus catches up by the
+patch's move path with the JAX package's bytes. A fresh IVF-PQ index built
+by either package survives the other's compaction: it is remapped in place
+(``ann_meta.npz`` equal, array for array, to the building package's own
+compaction), and that package still serves it with the exact hits; a stale
+one is retired.
 """
 
 from __future__ import annotations
 
 import io
 import json
+import shutil
 import sqlite3
 import sys
 
@@ -315,3 +319,113 @@ def test_cli_compact_matches_jax(tmp_path, monkeypatch, capsys):
     assert json.loads(report) == {"workspace": "c", "rows_live": 64, "slots_before": 1564,
                                   "slots_reclaimed": 1500, "index_remapped": False}
     assert "already compact" in again
+
+
+def _ann_meta(store_dir):
+    with np.load(store_dir / "ann_meta.npz", allow_pickle=False) as z:
+        return {k: np.array(z[k]) for k in z.files}
+
+
+@pytest.mark.parametrize("built_by", ["jax", "torch"])
+def test_fresh_index_remapped_by_the_other_package(tmp_path, monkeypatch, built_by):
+    """One package builds a forced index after a delete, the other compacts
+    (a copy of the same directory is compacted by the building package): the
+    report says remapped, ``ann_meta.npz`` equals that package's own
+    compaction array for array, and that package still serves ``ivf-pq`` with
+    the exact hits, also after a later mutation (reconciled by the delta)."""
+    monkeypatch.setenv("SEMTOOLS_TPU_FORCE_ANN", "1")
+    cls = {"jax": JaxStore, "torch": lambda d, dim: Store(d, dim=dim, device="cpu")}
+    other = "torch" if built_by == "jax" else "jax"
+    rng = np.random.default_rng(11)
+    s = cls[built_by](str(tmp_path / "built"), dim=D)
+    model = {}
+    for i in range(6):
+        x = _unit(rng, 40)
+        s.upsert_document_lines(f"/d{i}.txt", x)
+        model[f"/d{i}.txt"] = x
+    s.delete_documents(["/d2.txt"])
+    del model["/d2.txt"]
+    s.build_ann_index(force=True)  # fresh AFTER the delete
+    assert s.serving_tier() == "ivf-pq"
+    s.close()
+    shutil.copytree(tmp_path / "built", tmp_path / "self")
+
+    reports = {}
+    for where, side in (("built", other), ("self", built_by)):
+        with cls[side](str(tmp_path / where), dim=D) as c:
+            reports[where] = c.compact()
+    assert reports["built"] == reports["self"] == {
+        "rows_live": 200, "slots_before": 240, "slots_reclaimed": 40, "index_remapped": True}
+    got, want = _ann_meta(tmp_path / "built"), _ann_meta(tmp_path / "self")
+    assert sorted(got) == sorted(want)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+    s = cls[built_by](str(tmp_path / "built"), dim=D)
+    assert s.serving_tier() == "ivf-pq"
+    assert s._ann_current() is not None and len(s._ann_current()[4]) == 0
+    _check_search(s, model)
+    _check_search(s, model, seed=6, top_k=3)
+    x = _unit(rng, 25)
+    s.upsert_document_lines("/new.txt", x)
+    model["/new.txt"] = x
+    assert s.serving_tier() == "ivf-pq"
+    got = s.search_line_embeddings(x[7], sorted(model), 1)
+    assert (got[0].path, got[0].line_number) == ("/new.txt", 7)
+    _check_search(s, model, seed=7)
+    s.close()
+
+
+def test_stale_index_retired_not_corrupted(tmp_path, monkeypatch):
+    """A mutation after the build leaves the index stale; compaction then
+    moves rows, so the port does not remap it and the drift bound retires
+    it in both packages: the exact tiers serve."""
+    monkeypatch.setenv("SEMTOOLS_TPU_FORCE_ANN", "1")
+    rng = np.random.default_rng(12)
+    s = Store(str(tmp_path / "ws"), dim=D, device="cpu")
+    model = {}
+    for i in range(6):
+        x = _unit(rng, 40)
+        s.upsert_document_lines(f"/d{i}.txt", x)
+        model[f"/d{i}.txt"] = x
+    s.build_ann_index(force=True)
+    s.delete_documents(["/d3.txt"])
+    del model["/d3.txt"]
+    assert s.compact()["index_remapped"] is False
+    assert s.serving_tier() != "ivf-pq"
+    _check_search(s, model)
+    with JaxStore(str(tmp_path / "ws"), dim=D) as j:
+        assert j.serving_tier() != "ivf-pq"
+        _check_search(j, model)
+    s.close()
+
+
+def test_cli_compact_reports_the_remap(tmp_path, monkeypatch, capsys):
+    """``workspace compact`` prints the JAX CLI's remap line, and ``-j``
+    reports ``index_remapped: true``."""
+    monkeypatch.setenv("SEMTOOLS_TPU_FORCE_ANN", "1")
+    outs = {}
+    for side, main, store_cls in (("jax", jax_cli.main, JaxStore),
+                                  ("torch", torch_cli.main, Store)):
+        for flag in ([], ["-j"]):
+            home = tmp_path / f"{side}{len(flag)}"
+            home.mkdir()
+            monkeypatch.setenv("HOME", str(home))
+            monkeypatch.setenv("SEMTOOLS_WORKSPACE", "c")
+            _cli(main, ["workspace", "use", "c"], capsys, monkeypatch)
+            from semtools_tpu_torch.store import Workspace
+
+            rng = np.random.default_rng(3)
+            with Store(Workspace.open("c").config.root_dir, dim=D, device="cpu") as s:
+                s.upsert_document_lines("/gone.txt", _unit(rng, 30))
+                s.upsert_document_lines("/keep.txt", _unit(rng, 64))
+                s.delete_documents(["/gone.txt"])
+                s.build_ann_index(force=True)
+            outs[side, len(flag)] = _cli(main, ["workspace", "compact", *flag], capsys,
+                                         monkeypatch)
+    assert outs["torch", 0] == outs["jax", 0] == (
+        "Compacted 64 lines: reclaimed 30 of 94 slots.\n"
+        "IVF-PQ index remapped in place (no rebuild needed).\n")
+    assert json.loads(outs["torch", 1]) == json.loads(outs["jax", 1]) == {
+        "workspace": "c", "rows_live": 64, "slots_before": 94, "slots_reclaimed": 30,
+        "index_remapped": True}

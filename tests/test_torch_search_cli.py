@@ -172,7 +172,7 @@ def test_queries_file_matches_jax_cli(env, capsys, monkeypatch, flags, stdin_doc
 
 def test_unported_modes_exit_1(env, capsys, monkeypatch):
     files, _ = env
-    for argv in (["parse", *files], ["ask", "q", *files], ["workspace", "index", "ws"]):
+    for argv in (["parse", *files], ["ask", "q", *files]):
         rc, out, err = _run(torch_cli.main, argv, capsys, monkeypatch)
         assert rc == 1 and out == "" and "not ported yet" in err, argv
     rc, _, err = _run(torch_cli.main, ["search", "q", "--device", "cpu"], capsys, monkeypatch,
@@ -210,11 +210,12 @@ def test_device_is_explicit(monkeypatch):
 
 
 def test_port_search_never_imports_jax(env, tmp_path):
-    """A plain search, workspace searches (int8 and int4 tiers), a daemon
-    serving (warm-up included) and a search forwarded to it, in a child
-    process that can see only the port (``semtools_tpu_torch/`` and ``cpp/``,
-    without the JAX package or its ``_native/`` build), import nothing of jax
-    or of the JAX package."""
+    """A plain search, workspace searches (int8 and int4 tiers), a forced
+    IVF-PQ build (``workspace index --force``) and a search it serves, a
+    daemon serving (warm-up included) and a search forwarded to it, in a
+    child process that can see only the port (``semtools_tpu_torch/`` and
+    ``cpp/``, without the JAX package or its ``_native/`` build), import
+    nothing of jax or of the JAX package."""
     import shutil
 
     files, _ = env
@@ -236,6 +237,15 @@ def test_port_search_never_imports_jax(env, tmp_path):
         f"rc = main(['search', 'lazy dog', *{files!r}, '-w', 'guard', '--device', 'cpu'])\n"
         "assert rc == 0, rc\n"
         "assert main(['workspace', 'status', 'guard']) == 0\n"
+        "os.environ.pop('SEMTOOLS_TPU_STORE_INT4')\n"
+        "os.environ.update(SEMTOOLS_TPU_FORCE_ANN='1', SEMTOOLS_TORCH_DEVICE='cpu')\n"
+        "assert main(['workspace', 'index', 'guard', '--force']) == 0\n"
+        f"rc = main(['search', 'lazy dog', *{files!r}, '-w', 'guard', '--device', 'cpu'])\n"
+        "assert rc == 0, rc\n"
+        "assert main(['workspace', 'status', 'guard']) == 0\n"
+        "from semtools_tpu_torch.utils import native\n"
+        "assert native.adc_lib() is not None\n"
+        "os.environ.pop('SEMTOOLS_TPU_FORCE_ANN')\n"
         "import contextlib, io, json, threading, time\n"
         "from semtools_tpu_torch import daemon\n"
         "os.environ.update(SEMTOOLS_TPU_DAEMON_DIR=sys.argv[2], SEMTOOLS_WORKSPACE='guard',\n"
@@ -256,7 +266,6 @@ def test_port_search_never_imports_jax(env, tmp_path):
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'semtools_tpu'))\n"
         "assert not bad, bad\n"
-        "from semtools_tpu_torch.utils import native\n"
         "assert native.lib_path().is_relative_to(sys.argv[1]), native.lib_path()\n"
         "print('NO_JAX_OK')\n"
     )
@@ -273,3 +282,4 @@ def test_port_search_never_imports_jax(env, tmp_path):
     assert json.loads(out[: out.index("\n}\n") + 2])["results"]
     assert "lazy dog" not in proc.stderr and "Updating workspace" in proc.stderr
     assert "int4-mxu-scan" in out  # the second workspace search served the int4 tier
+    assert "Index ready: ivf-pq serving" in out and "Index: Yes (ivf-pq)" in out

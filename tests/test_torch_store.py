@@ -285,6 +285,19 @@ def test_unported_tiers_raise(stores, monkeypatch, env, what):
             want, got = _search(j, t, _queries(docs), SUBSETS[subset], top_k, max_distance)
             _assert_same(want, got, exact=False)
         return
+    if what == "IVF-PQ":
+        # ported since: without an index both packages name the device tier
+        # that serves in its place; with one each serves it, with the same
+        # hits (exact re-rank: distances within F32_ATOL)
+        assert t.serving_tier() == j.serving_tier() != "ivf-pq"
+        for s in (j, t):
+            s.build_ann_index(force=True)
+        assert t.serving_tier() == j.serving_tier() == "ivf-pq"
+        for subset, top_k, max_distance in (("all", 5, None), ("two", 8, None),
+                                            ("all", 10, 0.9)):
+            want, got = _search(j, t, _queries(docs), SUBSETS[subset], top_k, max_distance)
+            _assert_same(want, got, exact=False)
+        return
     with pytest.raises(NotPortedError, match=f"{what}.*not ported yet"):
         t.serving_tier()
     with pytest.raises(NotPortedError, match="not ported yet"):

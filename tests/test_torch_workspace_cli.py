@@ -188,10 +188,9 @@ def test_one_line_edit_reuses_cached_lines(env, capsys, monkeypatch):
 
 
 def test_workspace_errors_match_jax_cli(env, capsys, monkeypatch):
-    """Errors match too: no active workspace, and the unported action."""
+    """Errors match too: no active workspace, for ``status`` and ``index``."""
     homes, _, _ = env
-    rj, _, ej = _run("jax", ["workspace", "status"], homes, capsys, monkeypatch)
-    rt, _, et = _run("torch", ["workspace", "status"], homes, capsys, monkeypatch)
-    assert rj == rt == 1 and "No active workspace" in et and et == ej
-    rt, _, et = _run("torch", ["workspace", "index", "ws"], homes, capsys, monkeypatch)
-    assert rt == 1 and "not ported yet" in et
+    for argv in (["workspace", "status"], ["workspace", "index"], ["workspace", "index", "-f"]):
+        rj, _, ej = _run("jax", argv, homes, capsys, monkeypatch)
+        rt, _, et = _run("torch", argv, homes, capsys, monkeypatch)
+        assert rj == rt == 1 and "No active workspace" in et and et == ej, argv
