@@ -43,12 +43,26 @@ exits non-zero without them. Phases:
    ``int4_topk_scan`` through its public entry point (counts reset just
    before: the two-phase kernels' own path) against the plain phases, and
    times as in phase 2 at N = 10M, Q = 8, k = 10;
-5. main path: ``semtools search`` through ``semtools_tpu_torch.cli.main``
+5. probes (``semtools_tpu_torch/probes``, kernels ``csrc/stream.cu`` and
+   ``csrc/probe_tilemax.cu``): every tile-max variant (masked and not; a
+   whole-tile max, 512-row sub-tiles, full sims) and the stream kernels
+   against their plain versions at ragged small sizes; then each probe
+   module at its published size (launches counted on its own run): the
+   stream sweep over ~10M x 256 int8 rows (tiles, rings, ``torch.sum``; the
+   best is ``stream_roof_gbps``), the tile-max sweep (2M rows), the int8
+   phase 1 taken apart (10M rows), the int4 split-half sweep (2M rows) and
+   the int4 unpack recipes (4.2M rows; and the floor scheme's full sims of
+   8,192 rows), each call against its plain version (bit-equal; bf16 rows
+   within 1e-5), the int4 sweep's tile maxima and the floor scheme's full
+   sims against their JAX probes' integer oracles (exactly 0), and timed as
+   in phase 2 (the module's events time: least of 3 trials of 20 calls), the
+   byte-bound scan kernels of phases 2-4 quoted as a share of the roof;
+6. main path: ``semtools search`` through ``semtools_tpu_torch.cli.main``
    over ~1M lines of seeded synthetic text in 500 files (the corpus sits on
    the card as 1M x 256 f32) with the built-in 65,536 x 256 embedder, one
    query and an 8-query ``-Q`` batch, plus a 2,000-line search that routes
    to the single-phase kernel;
-6. workspace: under a fresh HOME, ``workspace use``, a cold ``search -w``
+7. workspace: under a fresh HOME, ``workspace use``, a cold ``search -w``
    over the same 1M lines (embed + upsert; the store serves them from its
    int8 slot corpus, 256 MB on the card), a warm repeat, a ``-Q`` batch, a
    300-file subset (the masked int8 kernels), the same query on the f32
@@ -60,10 +74,10 @@ exits non-zero without them. Phases:
    variable, a 200 MB device budget, where the int8 corpus (256 MB) does not
    fit and the int4 one does: ``workspace status`` must name
    ``int4-mxu-scan`` and a search is served from it;
-7. workspace residency, on the same workspace: the int8 and int4 corpora
+8. workspace residency, on the same workspace: the int8 and int4 corpora
    built on the card (``SEMTOOLS_TPU_BUILD=device``, as the cold search's
    ``auto`` does) and on the host must be byte-equal; the one-line edit of
-   phase 6 must be served by a patch (no ``slot_corpus_build`` stage, one
+   phase 7 must be served by a patch (no ``slot_corpus_build`` stage, one
    row and its index uploaded); budgets of 100 MB and 50 MB pick the
    reduced-64d and reduced-32d rungs (``workspace status``), whose top-k and
    ``-m`` searches must equal the plain scan; ``workspace compact -j`` must
@@ -75,7 +89,7 @@ exits non-zero without them. Phases:
    child clients (one coalesced scan or a few; each output equal to its
    direct run; the int8 kernels launched from the daemon's threads), an
    edit then a forwarded search (patched, not rebuilt), and ``stop``;
-8. IVF-PQ: the index layer (``semtools_tpu_torch/index``) on a seeded,
+9. IVF-PQ: the index layer (``semtools_tpu_torch/index``) on a seeded,
    clustered 100,000 x 256 set (nlist 1024, m 32), built twice on the card
    (byte-equal: the build's determinism) and once on the CPU (the full
    builds' agreement logged: k-means amplifies last-bit differences); on the
@@ -85,7 +99,7 @@ exits non-zero without them. Phases:
    train, fused pass and finalize timed, the memory peak, the lists and
    codes of one chunk's worth of sampled rows recomputed by the separate
    passes); then the store,
-   on the workspace of phases 6-7 with ``SEMTOOLS_TPU_FORCE_ANN=1``:
+   on the workspace of phases 7-8 with ``SEMTOOLS_TPU_FORCE_ANN=1``:
    ``workspace index --force -j`` built on the card, ``workspace status``
    naming ``ivf-pq``, a ``-Q`` 8 search (every served distance equal to
    ``1 - row . q`` from the vector file within 1e-6; recall@10 against the
@@ -95,14 +109,15 @@ exits non-zero without them. Phases:
    and a one-line edit served through the delta (no rebuild: the meta
    untouched, one document in the reconcile).
 
-Phases 5-8 check their hits against a plain exact scan of the same
+Phases 6-9 check their hits against a plain exact scan of the same
 embeddings on the card (tolerance as in phase 2), and every kernel of each
 path must show launches in that path's run (counts reset just before it).
 The launch floor (an empty kernel through the kernels' ctypes path) is
 timed after the build. The last line of stdout is ``{"ok": true,
-"device": {...}}``; the lines before it are the card's name and power limit
-and the per-kernel JSON summary (with ``device_ms`` and ``floor_ms`` beside
-the contract's keys).
+"device": {...}}``; the lines before it are the card's name and power limit,
+the ``stream_roof_gbps`` line, and the per-kernel JSON summary (with
+``device_ms`` and ``floor_ms`` beside the contract's keys; a probe's entry
+is the call named in PROBES).
 """
 
 from __future__ import annotations
@@ -162,9 +177,9 @@ SCALE_ROWS, SCALE_CENTERS = 10_000_000, 65_536
 AGREE = 0.999  # card against CPU on the same quantizers: least share of equal results
 E_SCALE = 1.0 / 7.0  # the packed corpora of phase 4 are random bytes: any scale serves
 # Data-sheet peaks of one H100 SXM at 700 W: HBM bytes/s, f32 FLOP/s on the
-# CUDA cores, int8 tensor-core OP/s.
+# CUDA cores, bf16 and int8 tensor-core FLOP/s and OP/s.
 HBM_BPS = 3.35e12
-PEAK_OPS = {"f32": 67e12, "int8": 1979e12}
+PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 
 
 def log(msg: str) -> None:
@@ -829,6 +844,175 @@ def time_int4_kernels(p4, n_true, gen):
         f"{busy:.3f} ms of {wall:.3f} ms wall; by kernel: "
         + "; ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in ops))
     return t
+
+
+# The probes (semtools_tpu_torch/probes, ops/probes.py): each launch counter
+# with the Pallas body it replaces (PERF.md's table maps every other body a
+# kernel runs) and the call of its probe that the summary reports.
+STREAM_SOURCE = "semtools_tpu_torch/csrc/stream.cu"
+PROBE_SOURCE = "semtools_tpu_torch/csrc/probe_tilemax.cu"
+PROBES = {
+    "stream_tiles": ("benchmarks/quantitative/bench_stream_sweep.py:66", "auto_tile8192_gbps"),
+    "stream_ring": ("benchmarks/quantitative/bench_stream_sweep.py:94", "manual_t128_b2_gbps"),
+    "tilemax_bf16_plain": ("benchmarks/quantitative/bench_kernel_variants.py:32",
+                           "bf16_plain_tile2048"),
+    "tilemax_int8_convert_bf16": ("benchmarks/quantitative/bench_int8_phase1.py:97",
+                                  "phase1_full_vecs_per_ms"),
+    "tilemax_int8_int_dot": ("benchmarks/quantitative/bench_int8_phase1.py:142",
+                             "int8_direct_dot_vecs_per_ms"),
+    "tilemax_int8_f32_dot": ("benchmarks/quantitative/bench_int8_phase1.py:157",
+                             "f32_convert_dot_vecs_per_ms"),
+    "colsum_int8_convert_bf16": ("benchmarks/quantitative/bench_int8_phase1.py:124",
+                                 "convert_sum_vecs_per_ms"),
+    "colsum_int8": ("benchmarks/quantitative/bench_int8_phase1.py:133",
+                    "pure_stream_vecs_per_ms"),
+    "tilemax_int4_u8": ("benchmarks/quantitative/bench_int4_sweep.py:43",
+                        "int4_sweep_vecs_per_ms"),
+    "tilemax_int4_shift": ("scripts/probe_int4_opt.py:48", "shift_tile16384"),
+    "tilemax_int4_native": ("scripts/probe_int4_opt.py:157", "native_tile8192"),
+    "tilemax_int4_floor": ("scripts/probe_int4_opt2.py:43", "floor_tile16384"),
+    "tilemax_int4_and15": ("scripts/probe_int4_opt2.py:61", "and15_tile16384"),
+}
+# the scan kernels quoted as a share of the measured roof (bytes-bound ones)
+ROOF_SHARE = ("fused_tilemax", "fused_scan_candidates", "int8_tilemax", "int8_tilemax_masked",
+              "int4_tilemax", "int4_tilemax_masked", "int4_sims_max", "int4_sims_max_masked")
+
+
+def probe_equal(what, got, want, tol: float) -> float:
+    """Bit-equal (tol 0) or within tol where finite, -inf in the same places."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} against the plain "
+                             f"version's {tuple(want.shape)} {want.dtype}")
+    if tol == 0.0:
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: differs from the plain version")
+        return 0.0
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)):
+        raise AssertionError(f"{what}: -inf slots differ from the plain version")
+    err = (got - want)[fin].abs().max().item() if bool(fin.any()) else 0.0
+    if not err <= tol:
+        raise AssertionError(f"{what}: max |probe - plain| = {err} > {tol}")
+    return err
+
+
+def probe_ragged_checks(gen) -> None:
+    """Every tile-max variant, masked and not, in three output shapes (a
+    whole-tile max over two atomic spans, 512-row sub-tiles, every row's
+    sims), and the stream kernels, at ragged small sizes, against the plain
+    versions."""
+    import torch
+
+    from semtools_tpu_torch.ops import probes as pr
+
+    for (storage, recipe, reduce), (_, counter) in pr.VARIANTS.items():
+        dtype, width = pr.STORAGES[storage]
+        for tile, sub_rows in ((4096, 4096), (1024, 512), (512, 1)):
+            if reduce == "sum" and sub_rows != tile:
+                continue
+            n = 3 * tile + 333
+            if storage == "bf16":
+                e = unit_rows(n, gen).to(torch.bfloat16)
+                q = e[:8].clone()
+            else:
+                e = torch.randint(-127, 128, (n, width), generator=gen, device="cuda",
+                                  dtype=torch.int8).view(dtype)
+                q = torch.randint(-127, 128, (8, pr.DIM), generator=gen, device="cuda",
+                                  dtype=torch.int8)
+            for n_true in (None, n - 400):
+                kw = dict(tile=tile, storage=storage, reduce=reduce, sub_rows=sub_rows,
+                          masked=n_true is not None)
+                probe_equal(f"{counter} N={n} tile={tile} sub={sub_rows} n_true={n_true}",
+                            pr.tilemax_probe(q, e, n_true, recipe=recipe, **kw),
+                            pr.tilemax_probe_reference(q, e, n_true, **kw),
+                            1e-5 if storage == "bf16" else 0.0)
+    e = torch.randint(-127, 128, (100_003, pr.DIM), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    for tile in (64, 1000, 24576):
+        probe_equal(f"stream_tiles tile={tile}", pr.stream_tiles(e, tile, 3),
+                    pr.stream_tiles_reference(e, tile, 3), 0.0)
+    for stages in pr.RING_STAGES:
+        for rows in (16, 48, 256 if stages < 4 else 64):
+            probe_equal(f"stream_ring {rows}x{stages}",
+                        pr.stream_ring(e, 3, stage_rows=rows, stages=stages, n_use=99_999),
+                        pr.stream_ring_reference(e, 3, 99_999), 0.0)
+    log(f"probes: {len(pr.VARIANTS)} tile-max variants (masked and not; tile max, 512-row "
+        f"sub-tiles, full sims) and the stream kernels at ragged sizes: equal to the plain "
+        f"versions (bf16 within 1e-5)")
+
+
+def probe_phase():
+    """Each probe module at its published size (launches counted on its
+    own run), then each of its calls against the plain version and timed:
+    the module's events time, device time under torch.profiler, the plain
+    version's time, the bound and, for the stream kernels and k_stream, one
+    torch.sum; a call with a JAX probe's oracle must match it exactly.
+    Returns (per-counter summary: the call PROBES names, with the largest
+    error of all the counter's calls; stream roof in GB/s)."""
+    import torch
+
+    from semtools_tpu_torch.ops import kernels
+    from semtools_tpu_torch.probes import common, int4_sweep, int4_unpack, int8_phase1, \
+        kernel_variants, stream_sweep
+
+    probe_ragged_checks(torch.Generator(device="cuda").manual_seed(SEED + 7))
+    summary, errs, roof = {}, {}, None
+    for mod in (stream_sweep, kernel_variants, int8_phase1, int4_sweep, int4_unpack):
+        name = mod.__name__.rsplit(".", 1)[1]
+        args = common.parser(name, mod.N).parse_args([])
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        out, cases = mod.run(args)
+        counts = kernels.launch_counts()
+        log(f"probe {name} (N={args.rows}) in {time.perf_counter() - t0:.1f} s: {json.dumps(out)}")
+        if name == "stream_sweep":
+            roof = out["stream_roof_gbps"]
+        for c in cases:
+            err = probe_equal(f"probe {name} {c.key}", c.fn(), c.plain(), c.tol)
+            kernel = c.counter if c.counter.startswith("stream") else "probe_tilemax"
+            r = {"key": c.key, "ms": c.ms, "device_ms": device_ms(c.fn, kernel, reps=5),
+                 "plain_ms": cuda_ms(c.plain, reps=2), "launches": counts[c.counter],
+                 "max_abs_err": err,
+                 "library_ms": None if c.library is None else cuda_ms(c.library, reps=5)}
+            r["bound_ms"], r["bound_by"] = bound(c.nbytes, c.ops, c.unit)
+            gb = c.nbytes / r["ms"] / 1e6  # events, as the roof
+            lib = "" if r["library_ms"] is None else f", torch.sum {r['library_ms']:.4f} ms"
+            if c.oracle_err is not None:
+                if c.oracle_err != 0.0:
+                    raise AssertionError(f"probe {name} {c.key}: max |kernel - the JAX probe's "
+                                         f"integer oracle| = {c.oracle_err}")
+                lib += ", equal to the integer oracle"
+            log(f"time: probe {name} {c.key} [{c.counter}] N={c.vectors}: {r['ms']:.4f} ms "
+                f"events ({gb:.1f} GB/s, {gb / roof:.1%} of the roof) / {r['device_ms']:.4f} ms "
+                f"device, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}){lib}")
+            errs[c.counter] = max(err, errs.get(c.counter, 0.0))
+            if PROBES[c.counter][1] == c.key:
+                summary[c.counter] = r
+        del cases
+        torch.cuda.empty_cache()
+    if set(summary) != set(PROBES):
+        raise AssertionError(f"probes: no run of {sorted(set(PROBES) - set(summary))}")
+    for counter, r in summary.items():
+        r["max_abs_err"] = errs[counter]
+    idle = sorted(n for n, r in summary.items() if r["launches"] <= 0)
+    if idle:
+        raise AssertionError(f"probes: kernels not launched on their probe's run: {idle}")
+    return summary, roof
+
+
+def roof_shares(times: dict, roof_gbps: float) -> None:
+    """The byte-bound scan kernels as a share of the measured roof: the
+    bytes of their bound over their events time (the roof's clock)."""
+    parts = []
+    for name in ROOF_SHARE:
+        r = times[name]
+        gb = r["bound_ms"] * HBM_BPS / 1e9 / r["ms"]  # bytes of the bound, per ms
+        parts.append(f"{name} {gb:.1f} GB/s = {gb / roof_gbps:.1%}")
+    log(f"roof: stream_roof_gbps {roof_gbps:.1f} ({roof_gbps / (HBM_BPS / 1e9):.1%} of the "
+        f"data sheet's 3350 GB/s); scan kernels (events time): " + "; ".join(parts))
 
 
 WORDS = (
@@ -1708,6 +1892,10 @@ def main() -> int:
     times.update(times8)
     times.update(times4)
     log(f"kernels: done at {time.perf_counter() - t_start:.1f} s")
+    t0 = time.perf_counter()
+    probes, roof = probe_phase()
+    roof_shares(times, roof)
+    log(f"probes: done in {time.perf_counter() - t0:.1f} s")
 
     os.environ.update(SEMTOOLS_TPU_ALLOW_FALLBACK="1", SEMTOOLS_TPU_NO_FETCH="1",
                       SEMTOOLS_TPU_TIMINGS="1")
@@ -1758,6 +1946,16 @@ def main() -> int:
             "floor_ms": floor[1], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    for name, r in probes.items():  # launches on each probe module's own run
+        summary["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": STREAM_SOURCE if name.startswith("stream") else PROBE_SOURCE,
+            "replaces": PROBES[name][0],
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "device_ms": r["device_ms"], "floor_ms": floor[1], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
+    log(f"stream_roof_gbps: {roof:.1f} ({card or 'card name and power limit unavailable'})")
     log(card or "nvidia-smi: name and power limit unavailable")
     log(json.dumps(summary))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

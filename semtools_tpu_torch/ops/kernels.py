@@ -35,7 +35,8 @@ from semtools_tpu_torch.utils.filelock import lock_exclusive, unlock
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
-SOURCES = ("fused_scan.cu", "int8_scan.cu", "int4_scan.cu", "select.cu")
+SOURCES = ("fused_scan.cu", "int8_scan.cu", "int4_scan.cu", "select.cu", "stream.cu",
+           "probe_tilemax.cu")
 HEADERS = ("common.cuh", "int_scan.cuh", "topk.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -48,6 +49,12 @@ KERNELS = (
     "int8_tilemax", "int8_rescan_topk", "int8_tilemax_masked", "int8_rescan_topk_masked",
     "int4_sims_max", "int4_sims_max_masked",
     "int4_tilemax", "int4_rescan_topk", "int4_tilemax_masked", "int4_rescan_topk_masked",
+    # the probes (ops/probes.py): the stream kernels, and the tile-max
+    # kernel counted by variant (probes.VARIANTS)
+    "stream_tiles", "stream_ring",
+    "tilemax_bf16_plain", "tilemax_int8_convert_bf16", "tilemax_int8_int_dot",
+    "tilemax_int8_f32_dot", "colsum_int8_convert_bf16", "colsum_int8", "tilemax_int4_u8",
+    "tilemax_int4_shift", "tilemax_int4_and15", "tilemax_int4_floor", "tilemax_int4_native",
 )
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _launches_lock = threading.Lock()
@@ -177,6 +184,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.semtools_int4_sims_rows.argtypes = []
     lib.semtools_int4_sims_max.restype = i32
     lib.semtools_int4_sims_max.argtypes = [p, p, p, i32, i32, i64, p, p, i64, p]
+    lib.semtools_stream_tiles.restype = i32
+    lib.semtools_stream_tiles.argtypes = [p, i64, i64, i32, p, p]
+    lib.semtools_stream_ring.restype = i32
+    lib.semtools_stream_ring.argtypes = [p, i64, i32, i32, p, p]
+    lib.semtools_probe_tilemax.restype = i32
+    lib.semtools_probe_tilemax.argtypes = [i32, p, p, i32, i64, i64, i64, i64, i64, i32, i32, p, p]
 
 
 def library() -> ctypes.CDLL:

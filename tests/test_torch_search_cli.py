@@ -283,3 +283,36 @@ def test_port_search_never_imports_jax(env, tmp_path):
     assert "lazy dog" not in proc.stderr and "Updating workspace" in proc.stderr
     assert "int4-mxu-scan" in out  # the second workspace search served the int4 tier
     assert "Index ready: ivf-pq serving" in out and "Index: Yes (ivf-pq)" in out
+
+
+def test_port_probes_never_import_jax(tmp_path):
+    """Every module of ``semtools_tpu_torch.probes`` (and ``ops.probes``),
+    imported and run on the CPU in a child that sees only the port, loads
+    nothing of jax or of the JAX package."""
+    import shutil
+
+    root = tmp_path / "port_only"
+    shutil.copytree(REPO / "semtools_tpu_torch", root / "semtools_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__", "_build"))
+    names = sorted(p.stem for p in (REPO / "semtools_tpu_torch" / "probes").glob("*.py")
+                   if p.stem != "__init__")
+    assert {"stream_sweep", "kernel_variants", "int8_phase1", "int4_sweep",
+            "int4_unpack"} <= set(names)
+    script = (
+        "import contextlib, importlib, io, sys\n"
+        "import semtools_tpu_torch.ops.probes\n"
+        f"for name in {names!r}:\n"
+        "    mod = importlib.import_module('semtools_tpu_torch.probes.' + name)\n"
+        "    if hasattr(mod, 'main'):\n"
+        "        with contextlib.redirect_stdout(io.StringIO()):\n"
+        "            assert mod.main(['--device', 'cpu', '--rows', '3000']) == 0, name\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'semtools_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('NO_JAX_OK')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                          env=dict(os.environ, PYTHONPATH=str(root)), capture_output=True,
+                          text=True, stdin=subprocess.DEVNULL, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("NO_JAX_OK")
