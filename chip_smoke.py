@@ -108,16 +108,40 @@ exits non-zero without them. Phases:
    (``index_remapped``; the next search names ``ivf-pq`` with the same hits)
    and a one-line edit served through the delta (no rebuild: the meta
    untouched, one document in the reconcile).
+10. parse and ask: on the workspace of phase 7 (its int8 tier warm, after
+   the edit), ``ask`` against a scripted fake OpenAI on localhost
+   (``tests/fake_servers.py``): chat mode over the 1M lines without ``-w``
+   (turn 1: four parallel ``search`` calls with one config, which must be
+   served by one batched scan: the fused kernels; turn 2: a ``grep``, which
+   must run the native scanner and equal a Python ``re`` scan, and a
+   ``read``; turn 3: the answer), then responses mode with ``-w`` over all
+   files (the int8 kernels; once more under torch.profiler for the device's
+   busy share) and over the 300-file subset (the masked ones), and after
+   the int4 steps the same two on the int4 rung (the sweep, plain and
+   masked).
+   Each search tool output's hits equal the plain scan of the same
+   embeddings (tolerance as in phase 2), no tool output may start with
+   ``Error:`` and each run must show launches of its path's kernels (counts
+   reset just before it; their sum is each kernel's ``ask_launches``). In
+   phase 8's daemon steps, an ``ask`` forwarded from a child process must
+   print what the same ask prints run here. Then, under a fresh HOME,
+   ``parse -b local`` over 250 seeded documents (docx, pptx, xlsx, html and
+   pdf with FlateDecode streams), five of them carrying a planted line: a
+   ``search`` on the card over the printed markdown must rank each planted
+   line first for its own text, and a second ``parse`` must be served from
+   the cache; ``parse`` against a fake LlamaParse on localhost with one
+   injected 5xx must take the retry, and a rerun must send no request.
+   Every run logs its wall time and stages (``SEMTOOLS_TPU_TIMINGS``).
 
-Phases 6-9 check their hits against a plain exact scan of the same
+Phases 6-10 check their hits against a plain exact scan of the same
 embeddings on the card (tolerance as in phase 2), and every kernel of each
 path must show launches in that path's run (counts reset just before it).
 The launch floor (an empty kernel through the kernels' ctypes path) is
 timed after the build. The last line of stdout is ``{"ok": true,
 "device": {...}}``; the lines before it are the card's name and power limit,
 the ``stream_roof_gbps`` line, and the per-kernel JSON summary (with
-``device_ms`` and ``floor_ms`` beside the contract's keys; a probe's entry
-is the call named in PROBES).
+``device_ms``, ``floor_ms`` and ``ask_launches`` beside the contract's keys;
+a probe's entry is the call named in PROBES).
 """
 
 from __future__ import annotations
@@ -250,12 +274,13 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def traced(fn, reps: int = 1, tries: int = 5):
+def traced(fn, reps: int = 1, tries: int = 5, want: str = ""):
     """(the CUDA events in start order, wall ms) of ``reps`` calls of ``fn``
     under torch.profiler. Now and then the profiler hands back a trace that
-    holds no device event at all, though the calls launched kernels: such a
-    trace is taken again, up to ``tries`` times in all, and each retry is
-    logged. The last trace is returned, empty or not."""
+    holds no device event at all, or only some of them, though the calls
+    launched kernels: a trace with no event, or with none whose name holds
+    ``want``, is taken again, up to ``tries`` times in all, and each retry is
+    logged. The last trace is returned, whatever it holds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -269,9 +294,10 @@ def traced(fn, reps: int = 1, tries: int = 5):
         events = sorted((e for e in prof.events()
                          if e.device_type == torch.autograd.DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
-        if events or attempt == tries:
+        if (events and any(want in e.name for e in events)) or attempt == tries:
             return events, wall
-        log(f"profiler: trace {attempt} of {tries} held no device event; tracing again")
+        log(f"profiler: trace {attempt} of {tries} held no device event"
+            f"{f' named {want!r}' if want else ''}; tracing again")
 
 
 def device_ms(fn, name=None, reps: int = 20) -> float:
@@ -284,7 +310,7 @@ def device_ms(fn, name=None, reps: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    events, _ = traced(fn, reps)
+    events, _ = traced(fn, reps, want=name or "")
     events = [e for e in events if name is None or name in e.name]
     if events:
         return sum(e.time_range.elapsed_us() for e in events) / 1e3 / (
@@ -370,7 +396,7 @@ def two_phase_ops(what: str, fn, phase1: str) -> None:
 
     fn()
     torch.cuda.synchronize()
-    ops, _ = traced(fn)
+    ops, _ = traced(fn, want=phase1)
     names = [e.name for e in ops]
     first = next((i for i, n in enumerate(names) if phase1 in n), None)
     after = names[first + 1:] if first is not None else names
@@ -1226,9 +1252,13 @@ def workspace_phase(files, qfile, model, corpus, starts):
 
             edited = corpus.clone()
             edited[int(starts[edit_file]) + edit_line] = model.encode([lines[edit_line]])[0]
+            t0 = time.perf_counter()
+            ask_steps(files, subset, model, edited, starts)
+            log(f"ask: the three runs and their checks in {time.perf_counter() - t0:.1f} s")
             ref_d, _ = _topk_chunk(model.encode(QUERIES[3:4]), edited, 0, edited.shape[0], 10)
             thr = float(ref_d[0, 4] + ref_d[0, 5]) / 2  # five hits below it
             hits4, launches4 = int4_workspace_steps(files, qfile, subset, thr)
+            ask_int4_steps(files, subset, model, edited, starts)
             hits.update(reduced_steps(files, thr))
             hits["compact"] = compact_steps(files)
             daemon_hits, daemon_edit = daemon_steps(files)
@@ -1505,6 +1535,29 @@ def daemon_steps(files):
         log(f"daemon: forwarded search -w after a one-line edit: {wall:.3f} s wall; patched in "
             f"{secs['slot_corpus_patch'] * 1e3:.1f} ms ({shipped} bytes uploaded), store_scan "
             f"{secs['store_scan'] * 1e3:.1f} ms")
+
+        # an ask forwarded from a child (workspace mode: SEMTOOLS_WORKSPACE), against the
+        # same ask run here; the int8 kernels launched from the daemon's thread
+        fakes = fake_servers()
+        ask = ["ask", "which lines speak of caches and rivers?", *files, "--api-key", "k"]
+        kernels.reset_launch_counts()
+        with fakes.FakeServer(fakes.FakeOpenAI(ask_script("chat", files, False))) as llm:
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "semtools_tpu_torch.cli", *ask, "--api-mode", "chat",
+                 "--base-url", llm.url], env=dict(child_env, SEMTOOLS_TPU_DAEMON="auto"),
+                cwd=str(REPO), stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+            fwd_ask, _ = finish(proc, "forwarded ask")
+            wall = time.perf_counter() - t0
+        launches_ask = launches_of(INT8_PATH, "ask forwarded to the daemon")
+        for name, n in launches_ask.items():
+            ASK_LAUNCHES[name] = ASK_LAUNCHES.get(name, 0) + n
+        direct_ask, _ = run_ask(ask, "chat", files, INT8_PATH, "chat, -w, the same ask here")
+        if fwd_ask != direct_ask:
+            raise AssertionError("the forwarded ask printed another answer than the direct one")
+        log(f"daemon: ask forwarded from a new process: {wall:.3f} s wall; its stdout equals "
+            f"the direct run's")
     finally:
         stopped = daemon.stop()
         server.join(timeout=60)
@@ -1858,6 +1911,344 @@ def ann_steps(files, qfile, subset, model, corpus, starts):
         os.environ.pop("SEMTOOLS_TPU_FORCE_ANN")
 
 
+# -- phase 10: parse and ask --------------------------------------------------------
+
+# n_lines 0: a search chunk starts at its matched line, which the checks read
+ASK_SEARCH = {"n_lines": 0, "top_k": 10}
+ASK_GREP = r"quick brown fox \w+"  # matches the workspace phase's edited line
+INT8_MASKED_PATH = ("int8_tilemax_masked", "select_subtiles", "int8_rescan_topk_masked")
+ASK_LAUNCHES = {}  # kernel -> launches summed over the ask runs
+CARD = ""  # nvidia-smi's name and power limit, beside phase 10's times
+PLANTED = ("zephyr lattice harbor quartz beacon", "marble orchid signal tundra violin",
+           "copper meadow glacier lantern sonnet", "saffron canyon pixel walrus ember",
+           "indigo falcon archive prism lagoon")
+DOC_FORMATS = ("docx", "pptx", "xlsx", "html", "pdf")
+N_DOCS = 250  # the local parse's documents, 50 of each format
+N_LLAMA_DOCS = 8  # the fake LlamaParse's
+
+
+def fake_servers():
+    """``tests/fake_servers.py`` of this checkout, loaded by path: a ``tests``
+    package installed in site-packages would shadow the repository's."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("semtools_smoke_fake_servers",
+                                                  REPO / "tests" / "fake_servers.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _zip(members) -> bytes:
+    import zipfile
+
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w", zipfile.ZIP_DEFLATED) as zf:
+        for name, content in members.items():
+            zf.writestr(name, content)
+    return buf.getvalue()
+
+
+def document_bytes(fmt: str, lines) -> bytes:
+    """One document of ``fmt`` whose text is ``lines`` (the first a title)."""
+    import html as html_mod
+    import zlib
+
+    esc = [html_mod.escape(ln) for ln in lines]
+    if fmt == "docx":
+        w = "http://schemas.openxmlformats.org/wordprocessingml/2006/main"
+        body = "".join(f"<w:p><w:r><w:t>{ln}</w:t></w:r></w:p>" for ln in esc)
+        return _zip({"word/document.xml": f'<?xml version="1.0"?><w:document xmlns:w="{w}">'
+                                          f"<w:body>{body}</w:body></w:document>"})
+    if fmt == "pptx":
+        p = "http://schemas.openxmlformats.org/presentationml/2006/main"
+        a = "http://schemas.openxmlformats.org/drawingml/2006/main"
+        bullets = "".join(f"<a:p><a:r><a:t>{ln}</a:t></a:r></a:p>" for ln in esc[1:])
+        shapes = (f'<p:sp><p:nvSpPr><p:nvPr><p:ph type="title"/></p:nvPr></p:nvSpPr><p:txBody>'
+                  f"<a:p><a:r><a:t>{esc[0]}</a:t></a:r></a:p></p:txBody></p:sp>"
+                  f'<p:sp><p:nvSpPr><p:nvPr><p:ph type="body"/></p:nvPr></p:nvSpPr>'
+                  f"<p:txBody>{bullets}</p:txBody></p:sp>")
+        return _zip({"ppt/slides/slide1.xml": f'<?xml version="1.0"?><p:sld xmlns:p="{p}" '
+                     f'xmlns:a="{a}"><p:cSld><p:spTree>{shapes}</p:spTree></p:cSld></p:sld>'})
+    if fmt == "xlsx":
+        s = "http://schemas.openxmlformats.org/spreadsheetml/2006/main"
+        r = "http://schemas.openxmlformats.org/officeDocument/2006/relationships"
+        rel = "http://schemas.openxmlformats.org/package/2006/relationships"
+        shared = "".join(f"<si><t>{ln}</t></si>" for ln in esc)
+        rows = "".join(f'<row r="{i + 1}"><c r="A{i + 1}" t="s"><v>{i}</v></c></row>'
+                       for i in range(len(lines)))
+        return _zip({
+            "xl/sharedStrings.xml": f'<?xml version="1.0"?><sst xmlns="{s}">{shared}</sst>',
+            "xl/worksheets/sheet1.xml": f'<?xml version="1.0"?><worksheet xmlns="{s}">'
+                                        f"<sheetData>{rows}</sheetData></worksheet>",
+            "xl/workbook.xml": f'<?xml version="1.0"?><workbook xmlns="{s}" xmlns:r="{r}">'
+                               '<sheets><sheet name="Sheet" sheetId="1" r:id="rId1"/></sheets>'
+                               "</workbook>",
+            "xl/_rels/workbook.xml.rels": f'<?xml version="1.0"?><Relationships xmlns="{rel}">'
+                                         '<Relationship Id="rId1" Type="x" '
+                                         'Target="worksheets/sheet1.xml"/></Relationships>',
+        })
+    if fmt == "html":
+        return (f"<html><body><h1>{esc[0]}</h1>"
+                + "".join(f"<p>{ln}</p>" for ln in esc[1:]) + "</body></html>").encode()
+    # pdf: one page, one FlateDecode content stream, a line per Td
+    text = b"BT /F1 12 Tf 72 760 Td " + b" 0 -14 Td ".join(
+        b"(%s) Tj" % ln.encode() for ln in lines) + b" ET"
+    z = zlib.compress(text)
+    objects = [
+        (1, b"<< /Type /Catalog /Pages 2 0 R >>"),
+        (2, b"<< /Type /Pages /Kids [3 0 R] /Count 1 >>"),
+        (3, b"<< /Type /Page /Parent 2 0 R /Contents 4 0 R >>"),
+        (4, b"<< /Length %d /Filter /FlateDecode >>\nstream\n" % len(z) + z + b"\nendstream"),
+    ]
+    return b"%PDF-1.4\n" + b"".join(b"%d 0 obj\n" % n + body + b"\nendobj\n"
+                                    for n, body in objects) + b"%%EOF\n"
+
+
+def write_documents(root: Path, n: int, seed: int):
+    """``n`` documents of 12-30 seeded lines, round robin over DOC_FORMATS;
+    document i < 5 carries the planted line PLANTED[i] (so each format
+    carries one). Returns the paths."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for i in range(n):
+        fmt = DOC_FORMATS[i % len(DOC_FORMATS)]
+        lines = [" ".join(rng.choice(WORDS, size=int(rng.integers(4, 11))))
+                 for _ in range(int(rng.integers(12, 31)))]
+        if i < len(PLANTED):
+            lines[1 + i] = PLANTED[i]
+        path = root / f"doc_{i:04d}.{fmt}"
+        path.write_bytes(document_bytes(fmt, lines))
+        paths.append(str(path))
+    return paths
+
+
+def parse_steps(root: Path):
+    """``parse -b local`` over N_DOCS seeded documents, then ``search`` on the
+    card over the markdown it printed (each planted line must rank first for
+    its own text), a second ``parse`` served from the cache; then ``parse``
+    against a fake LlamaParse on localhost with one injected 5xx (the retry
+    taken), and a rerun that sends no request."""
+    fakes = fake_servers()
+    FakeLlamaParse, FakeServer = fakes.FakeLlamaParse, fakes.FakeServer
+
+    docs = write_documents(root / "docs", N_DOCS, SEED + 2)
+    out, err, wall, stages = run_cli(["parse", "-b", "local", "-j", *docs])
+    results = json.loads(out)["results"]
+    if [r["input_path"] for r in results] != docs or any(r["was_cached"] for r in results) \
+            or "Error" in err:
+        raise AssertionError(f"parse -b local: {len(results)} results of {len(docs)}; "
+                             f"{err[-500:]!r}")
+    md = [r["output_path"] for r in results]
+    n_lines = sum(len(Path(p).read_text().splitlines()) for p in md)
+    log(f"parse: parse -b local, {len(docs)} documents ({', '.join(DOC_FORMATS)}; "
+        f"{n_lines} markdown lines): {wall:.3f} s wall; stages: {stages}")
+    again, _, wall, stages = run_cli(["parse", "-b", "local", "-j", *docs])
+    if [r["output_path"] for r in json.loads(again)["results"]] != md or \
+            not all(r["was_cached"] for r in json.loads(again)["results"]):
+        raise AssertionError("parse -b local, again: not served from the cache")
+    log(f"parse: the same parse again: {wall:.3f} s wall, every document from the cache")
+
+    qfile = root / "planted.txt"
+    qfile.write_text("\n".join(PLANTED) + "\n")
+    out, _, wall, stages = run_cli(["search", "-Q", str(qfile), *md, "--top-k", "3", "-n", "0",
+                                    "-j"])
+    for i, line in enumerate(out.splitlines()):
+        top = json.loads(line)["results"][0]
+        if top["filename"] != md[i] or PLANTED[i] not in top["content"]:
+            raise AssertionError(f"search over the parsed markdown: {PLANTED[i]!r} ranks "
+                                 f"{top['filename']}:{top['match_line_number']} first")
+    log(f"parse: search -Q 5 planted lines over the {len(md)} markdown files on the card: "
+        f"{wall:.3f} s wall; stages: {stages}; each planted line first "
+        f"({', '.join(DOC_FORMATS)})")
+
+    pdfs = [d for d in docs if d.endswith(".pdf")][:N_LLAMA_DOCS]
+    app = FakeLlamaParse(fail_uploads=1, markdown_pages=["# Page one\n\ntext", "two"])
+    with FakeServer(app) as server:
+        cfg = root / "llamaparse.json"
+        cfg.write_text(json.dumps({"parse": {"api_key": "k", "base_url": server.url,
+                                             "check_interval": 0.01, "retry_delay_ms": 1}}))
+        out, err, wall, stages = run_cli(["parse", "-c", str(cfg), "-j", *pdfs])
+        sent = len(app.requests)
+        again, _, wall2, _ = run_cli(["parse", "-c", str(cfg), "-j", *pdfs])
+    results = json.loads(out)["results"]
+    if len(results) != len(pdfs) or app.upload_attempts != len(pdfs) + 1 or \
+            "Job creation failed (attempt 1/11): server error. Retrying in 1ms..." not in err:
+        raise AssertionError(f"parse (LlamaParse): {len(results)} results, "
+                             f"{app.upload_attempts} uploads; {err[-500:]!r}")
+    if len(app.requests) != sent or \
+            not all(r["was_cached"] for r in json.loads(again)["results"]):
+        raise AssertionError("parse (LlamaParse) again: requests sent or not from the cache")
+    if Path(results[0]["output_path"]).read_text() != "# Page one\n\ntext\n\ntwo\n\n":
+        raise AssertionError("parse (LlamaParse): the pages were not assembled")
+    log(f"parse: parse against a fake LlamaParse on localhost, {len(pdfs)} documents, one "
+        f"5xx injected: {wall:.3f} s wall ({sent} requests, the retry taken; stages: "
+        f"{stages}); again: {wall2:.3f} s wall, no request, every document from the cache")
+
+
+def tool_turn(api, calls):
+    """An LLM turn that asks for ``calls`` [(tool, arguments)] in parallel."""
+    if api == "responses":
+        return {"output": [{"type": "function_call", "name": name, "arguments": json.dumps(args),
+                            "call_id": f"call_{i}", "id": f"fc_{i}"}
+                           for i, (name, args) in enumerate(calls)]}
+    return {"choices": [{"message": {"role": "assistant", "content": None, "tool_calls": [
+        {"id": f"call_{i}", "type": "function",
+         "function": {"name": name, "arguments": json.dumps(args)}}
+        for i, (name, args) in enumerate(calls)]}}]}
+
+
+def answer_turn(api, text):
+    if api == "responses":
+        return {"output": [{"type": "message", "role": "assistant",
+                            "content": [{"type": "output_text", "text": text}]}]}
+    return {"choices": [{"message": {"role": "assistant", "content": text}}]}
+
+
+def ask_script(api, files, with_grep):
+    """Turn 1: four parallel searches with one config; (turn 2: a grep and a
+    read); the answer."""
+    turns = [tool_turn(api, [("search", {"query": q, "config": ASK_SEARCH})
+                             for q in QUERIES[:4]])]
+    if with_grep:
+        turns.append(tool_turn(api, [("grep", {"pattern": ASK_GREP, "is_regex": True}),
+                                     ("read", {"path": files[7], "start_line": 95,
+                                               "end_line": 106})]))
+    return turns + [answer_turn(api, f"answer ({api})")]
+
+
+def tool_outputs(requests, api):
+    """Every tool output the LLM received, in call order (the last request
+    carries the whole history)."""
+    body = requests[-1]["body"]
+    if api == "chat":
+        return [m["content"] for m in body["messages"] if m["role"] == "tool"]
+    return [it["output"] for it in body["input"] if it.get("type") == "function_call_output"]
+
+
+def chunk_hits(output):
+    """A search tool output's hits as the CLI's JSON results (n_lines 0)."""
+    return [{"filename": f, "match_line_number": int(s), "distance": float(d)}
+            for f, s, d in re.findall(r"<chunk file=(\S+) start=(\d+) end=\d+ distance=([^>]+)>",
+                                      output)]
+
+
+def run_ask(argv, api, files, path, what, with_grep=False):
+    """One ``ask`` through the CLI against a fake LLM on localhost with the
+    counts reset just before: the path's kernels must show launches, the
+    four searches must be served by one batched scan, no tool output may
+    start with ``Error:``, and a grep must run the native scanner. Returns
+    (stdout, tool outputs)."""
+    from semtools_tpu_torch.ask import agent, tools
+    from semtools_tpu_torch.ops import kernels
+    from semtools_tpu_torch.utils import grepscan
+    fakes = fake_servers()
+    batches, singles, greps = [], [], []
+    real = (tools.search_tool_batched, agent.search_tool, grepscan.match_lines)
+    tools.search_tool_batched = lambda f, qs, *a, **k: batches.append(list(qs)) or real[0](
+        f, qs, *a, **k)
+    agent.search_tool = lambda *a, **k: singles.append(a) or real[1](*a, **k)
+    grepscan.match_lines = lambda *a: greps.append(a) or real[2](*a)
+    try:
+        with fakes.FakeServer(fakes.FakeOpenAI(ask_script(api, files, with_grep))) as llm:
+            kernels.reset_launch_counts()
+            out, _, wall, stages = run_cli([*argv, "--api-mode", api, "--base-url", llm.url,
+                                            "--api-key", "k"])
+            launches = launches_of(path, f"ask ({what})")
+            requests = llm.app.requests
+    finally:
+        tools.search_tool_batched, agent.search_tool, grepscan.match_lines = real
+    for name, n in launches.items():
+        ASK_LAUNCHES[name] = ASK_LAUNCHES.get(name, 0) + n
+    outputs = tool_outputs(requests, api)
+    failed = [o[:200] for o in outputs if o.startswith("Error:")]
+    if failed:
+        raise AssertionError(f"ask ({what}): tool outputs {failed}")
+    if batches != [QUERIES[:4]] or singles:
+        raise AssertionError(f"ask ({what}): the four searches ran as {batches} batched and "
+                             f"{len(singles)} single")
+    if with_grep and len(greps) != len(files):
+        raise AssertionError(f"ask ({what}): the native grep scanner ran on {len(greps)} files")
+    if not out.endswith(f"\nanswer ({api})\n") or len(requests) != 2 + with_grep:
+        raise AssertionError(f"ask ({what}): {len(requests)} LLM calls; stdout ends "
+                             f"{out[-200:]!r}")
+    log(f"ask: {what}: {wall:.3f} s wall; {len(requests)} LLM calls, {len(outputs)} tool calls; "
+        f"stages: {stages} ({CARD})")
+    return out, outputs
+
+
+def ask_steps(files, subset, model, corpus, starts):
+    """``ask`` on the workspace of phase 7 (its int8 tier warm; ``corpus``
+    holds its embeddings): chat mode without ``-w`` over the 1M lines (four
+    parallel searches, then a grep and a read), responses mode with ``-w``
+    over all files (K3) and over the 300-file subset (K4). Each search tool
+    output's hits must equal the plain scan of the same embeddings, and the
+    grep output a Python ``re`` scan."""
+    from semtools_tpu_torch.ask import tools
+    from semtools_tpu_torch.utils import grepscan
+
+    if not grepscan.available():
+        raise AssertionError("ask: the native grep scanner is not loaded")
+    question = ["ask", "which lines speak of caches and rivers?"]
+    _, outs = run_ask([*question, *files], "chat", files, F32_PATH,
+                      f"chat, {len(files)} files, plain", with_grep=True)
+    err = check_hits([chunk_hits(o) for o in outs[:4]], QUERIES[:4], model, corpus, starts,
+                     files, 10)
+    real = grepscan.available
+    grepscan.available = lambda: False
+    try:  # the same grep through Python re alone
+        want = tools.grep_tool(files, ASK_GREP, None, True, True, 3)
+    finally:
+        grepscan.available = real
+    if outs[4] != want or "<chunk" not in want:
+        raise AssertionError("ask: the native grep output differs from a Python re scan")
+    if not outs[5].startswith(f"<chunk file={files[7]} start=95 end=106>\n"):
+        raise AssertionError(f"ask: read output {outs[5][:120]!r}")
+    argv = [*question, *files, "-w", "smoke"]
+    _, outs = run_ask(argv, "responses", files, INT8_PATH,
+                      f"responses, -w, {len(files)} files (int8)")
+    err = max(err, check_hits([chunk_hits(o) for o in outs], QUERIES[:4], model, corpus,
+                              starts, files, 10))
+    busy, wall_ms, _ = device_busy(lambda: run_ask(argv, "responses", files, INT8_PATH,
+                                                   "the same, under torch.profiler"))
+    log(f"ask: ask -w under torch.profiler: device busy {busy:.3f} ms of {wall_ms:.1f} ms wall "
+        f"({100 * busy / wall_ms:.2f}%)")
+    _, outs = run_ask([*question, *subset, "-w", "smoke"], "responses", subset,
+                      INT8_MASKED_PATH, f"responses, -w, {len(subset)}-file subset (masked int8)")
+    n_sub = len(subset) * LINES_PER_FILE
+    err = max(err, check_hits([chunk_hits(o) for o in outs], QUERIES[:4], model,
+                              corpus[:n_sub], starts, subset, 10))
+    log(f"ask: every search tool output equals the plain scan of the same embeddings (max |d| "
+        f"err {err:.3g}); the grep output equals a Python re scan "
+        f"({want.count('<chunk')} chunks)")
+
+
+def ask_int4_steps(files, subset, model, corpus, starts):
+    """``ask -w`` (responses) on the int4 rung (``SEMTOOLS_TPU_STORE_INT4=1``,
+    its corpus built by the int4 steps of phase 7) over all files and the
+    300-file subset: the deep-candidate sweep, plain and masked (K6). Hits as
+    in :func:`ask_steps`."""
+    question = ["ask", "which lines speak of caches and rivers?"]
+    os.environ["SEMTOOLS_TPU_STORE_INT4"] = "1"
+    try:
+        _, outs = run_ask([*question, *files, "-w", "smoke"], "responses", files,
+                          ("int4_sims_max",), f"responses, -w, {len(files)} files (int4)")
+        err = check_hits([chunk_hits(o) for o in outs], QUERIES[:4], model, corpus, starts,
+                         files, 10)
+        _, outs = run_ask([*question, *subset, "-w", "smoke"], "responses", subset,
+                          ("int4_sims_max_masked",),
+                          f"responses, -w, {len(subset)}-file subset (masked int4)")
+        n_sub = len(subset) * LINES_PER_FILE
+        err = max(err, check_hits([chunk_hits(o) for o in outs], QUERIES[:4], model,
+                                  corpus[:n_sub], starts, subset, 10))
+    finally:
+        os.environ.pop("SEMTOOLS_TPU_STORE_INT4")
+    log(f"ask: the int4 rung's search tool outputs equal the plain scan (max |d| err {err:.3g})")
+
+
 def main() -> int:
     if not (REPO / "semtools_tpu_torch").is_dir() or not (REPO / "cpp").is_dir():
         print("error: run chip_smoke.py from a checkout of the repository", file=sys.stderr)
@@ -1874,6 +2265,8 @@ def main() -> int:
         capture_output=True, text=True,
     )
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else ""
+    global CARD
+    CARD = card
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}; "
         f"{card}")
     t_start = time.perf_counter()
@@ -1917,6 +2310,17 @@ def main() -> int:
         starts = np.arange(len(files) + 1) * LINES_PER_FILE
         check_main_path(outs, model, corpus, starts, files, small_lines, small)
         ws_launches, k6_launches = workspace_phase(files, qfile, model, corpus, starts)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="semtools_smoke_parse_") as home:
+            old_home, os.environ["HOME"] = os.environ.get("HOME"), home
+            try:
+                parse_steps(root / "parse")
+            finally:
+                if old_home is None:
+                    os.environ.pop("HOME", None)
+                else:
+                    os.environ["HOME"] = old_home
+        log(f"parse: done in {time.perf_counter() - t0:.1f} s ({card})")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "semtools_tpu"))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
@@ -1945,6 +2349,7 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": r["ms"], "device_ms": r["device_ms"],
             "floor_ms": floor[1], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "ask_launches": ASK_LAUNCHES.get(name, 0),
         })
     for name, r in probes.items():  # launches on each probe module's own run
         summary["kernels"].append({
@@ -1954,6 +2359,7 @@ def main() -> int:
             "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "device_ms": r["device_ms"], "floor_ms": floor[1], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "ask_launches": ASK_LAUNCHES.get(name, 0),
         })
     log(f"stream_roof_gbps: {roof:.1f} ({card or 'card name and power limit unavailable'})")
     log(card or "nvidia-smi: name and power limit unavailable")

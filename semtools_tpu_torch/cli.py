@@ -1,24 +1,29 @@
 """The ``semtools`` command line of the PyTorch port.
 
-Counterpart of ``semtools_tpu/cli.py``'s ``search``, ``workspace`` and
-``daemon`` subcommands: the same flags, defaults, text output and ``--json``
-schemas, plus ``--device`` on ``search`` and ``daemon`` (default ``cuda``;
-see :func:`semtools_tpu_torch.utils.platform.resolve_device`)::
+Counterpart of ``semtools_tpu/cli.py``: the ``parse``, ``search``,
+``workspace``, ``ask`` and ``daemon`` subcommands with the same flags,
+defaults, text output and ``--json`` schemas, plus ``--device`` on
+``search``, ``ask`` and ``daemon`` (default ``cuda``; see
+:func:`semtools_tpu_torch.utils.platform.resolve_device`)::
 
+    python -m semtools_tpu_torch.cli parse [-c CONFIG] [-b llama-parse|local] [-v] [-j] FILES...
     python -m semtools_tpu_torch.cli search QUERY [FILES...] [-n N] [--top-k K]
         [-m DIST] [-i] [-j] [-Q QUERIES_FILE] [-w WORKSPACE] [--model-path P]
+        [--device D]
+    python -m semtools_tpu_torch.cli ask QUERY [FILES...] [-c CONFIG] [--api-key K]
+        [--base-url URL] [-m MODEL] [--api-mode chat|responses] [-j] [-w WORKSPACE]
         [--device D]
     python -m semtools_tpu_torch.cli workspace [-j] use|status|prune|compact [NAME]
     python -m semtools_tpu_torch.cli workspace [-j] index [NAME] [--force]
     python -m semtools_tpu_torch.cli daemon [run|start|stop|status] [--device D]
 
-``search`` runs in workspace mode when ``-w`` or ``SEMTOOLS_WORKSPACE``
-names a workspace (the JAX package's on-disk workspaces, shared by both
-packages). When this package's daemon runs (``daemon start``), every command
-but ``daemon`` is forwarded to it before torch is imported
-(``SEMTOOLS_TPU_DAEMON=off`` runs it here). The ``parse`` and ``ask``
-commands are not ported yet: they exit 1 with a message rather than run a
-different mode.
+``search`` and ``ask`` run in workspace mode when ``-w`` or
+``SEMTOOLS_WORKSPACE`` names a workspace (the JAX package's on-disk
+workspaces, shared by both packages). When this package's daemon runs
+(``daemon start``), every command but ``daemon`` is forwarded to it before
+torch is imported (``SEMTOOLS_TPU_DAEMON=off`` runs it here). ``parse``,
+and ``ask`` with piped stdin and no files (one LLM call, no tools), import
+no torch.
 """
 
 from __future__ import annotations
@@ -34,7 +39,6 @@ from semtools_tpu_torch.utils.text import read_file_text, split_lines
 
 _HIGHLIGHT_ON = "\x1b[43m\x1b[30m"
 _HIGHLIGHT_OFF = "\x1b[0m"
-_NOT_PORTED = ("parse", "ask")
 
 
 def _fmt_distance(d: float) -> str:
@@ -132,6 +136,40 @@ def _print_batched(queries, per_query, printer, to_json) -> None:
         else:
             print(f"# query: {q}")
             printer(results)
+
+
+def parse_cmd(args) -> int:
+    from semtools_tpu_torch.parse import LlamaParseBackend, load_parse_config
+
+    parse_config = load_parse_config(args.config)
+
+    for f in args.files:
+        if not os.path.exists(f):
+            print(f"Warning: File does not exist: {f}", file=sys.stderr)
+
+    if args.backend == "llama-parse":
+        backend = LlamaParseBackend(parse_config, verbose=args.verbose)
+    elif args.backend == "local":
+        from semtools_tpu_torch.parse import LocalParseBackend
+
+        backend = LocalParseBackend(verbose=args.verbose)
+    else:
+        print(
+            f"Error: Unknown backend '{args.backend}'. "
+            "Supported backends: llama-parse, local",
+            file=sys.stderr,
+        )
+        return 1
+    if args.json:
+        results = backend.parse_detailed(args.files)
+        print(json_mode.dumps(json_mode.parse_output([
+            json_mode.parse_result(r.input_path, r.output_path, r.was_cached)
+            for r in results
+        ])))
+    else:
+        for path in backend.parse(args.files):
+            print(path)
+    return 0
 
 
 def search_cmd(args) -> int:
@@ -377,6 +415,12 @@ def workspace_index_cmd(args) -> int:
     return 0
 
 
+def ask_cmd(args) -> int:
+    from semtools_tpu_torch.ask import run_ask
+
+    return run_ask(args)
+
+
 def daemon_cmd(args) -> int:
     import subprocess
     import time
@@ -445,6 +489,19 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
 
+    p = sub.add_parser("parse", help="Parse documents using various backends")
+    p.add_argument("-c", "--config", default=None, help="Path to the config file")
+    p.add_argument(
+        "-b", "--backend", default="llama-parse",
+        help="Backend type (llama-parse | local)",
+    )
+    p.add_argument("-v", "--verbose", action="store_true",
+                   help="Verbose output while parsing")
+    p.add_argument("-j", "--json", action="store_true",
+                   help="Output results in JSON format")
+    p.add_argument("files", nargs="+", help="Files to parse")
+    p.set_defaults(func=parse_cmd)
+
     s = sub.add_parser("search", help="Fast semantic keyword search")
     s.add_argument("query", nargs="?", default=None,
                    help="Query text (or use --queries-file for a batch)")
@@ -470,6 +527,28 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--device", default=None,
                    help="torch device (default: $SEMTOOLS_TORCH_DEVICE, else cuda)")
     s.set_defaults(func=search_cmd)
+
+    a = sub.add_parser("ask", help="Document-based question answering agent")
+    a.add_argument("query", help="Query to prompt the agent with")
+    a.add_argument("files", nargs="*", help="Files to search, optional if using stdin")
+    a.add_argument("-c", "--config", default=None,
+                   help="Path to the config file. Defaults to ~/.semtools_config.json")
+    a.add_argument("--api-key", default=None,
+                   help="OpenAI API key (overrides config file and env var)")
+    a.add_argument("--base-url", default=None,
+                   help="OpenAI base URL (overrides config file)")
+    a.add_argument("-m", "--model", default=None,
+                   help="Model to use for the agent (overrides config file)")
+    a.add_argument("--api-mode", default=None, choices=["chat", "responses"],
+                   help="API mode to use (overrides config file)")
+    a.add_argument("-j", "--json", action="store_true",
+                   help="Output results in JSON or text format")
+    a.add_argument("-w", "--workspace", default=None,
+                   help="Use a specific workspace")
+    a.add_argument("--device", default=None,
+                   help="torch device of the search tool (default: "
+                   "$SEMTOOLS_TORCH_DEVICE, else cuda)")
+    a.set_defaults(func=ask_cmd)
 
     w = sub.add_parser("workspace", help="Manage semtools workspaces")
     # -j is global on the workspace subcommand (accepted before or after the
@@ -525,12 +604,6 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     from semtools_tpu_torch.utils.tracing import maybe_device_trace
 
-    if argv and argv[0] in _NOT_PORTED:
-        print(
-            f"Error: '{argv[0]}' is not ported yet (see ROADMAP.md)",
-            file=sys.stderr,
-        )
-        return 1
     args = build_parser().parse_args(argv)
     try:
         with maybe_device_trace():

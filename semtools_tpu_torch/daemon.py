@@ -68,7 +68,8 @@ def _read_only(argv) -> bool:
     """Commands that never need the exclusive gate: ``search`` (its
     incremental upsert is safe under concurrent writers: the store's flock,
     copy-on-write upserts and generation-keyed device caches) and
-    ``workspace status``. Everything else stays exclusive."""
+    ``workspace status``. Everything else (``parse``, ``ask``, ``workspace
+    index|compact|prune|use``) stays exclusive."""
     if argv and argv[0] == "search":
         return True
     return len(argv) >= 2 and argv[0] == "workspace" and argv[1] == "status"

@@ -6,14 +6,16 @@ directory, ``semtools_tpu_torch/_build/libsemtools_native.so``, by the same
 Makefile with its output path given on the command line; nothing is read
 from or written to the JAX package's ``_native/``. The port binds
 ``hashtok_encode_batch`` (cpp/hashtok.cpp), the hashed tokenizer's fast
-path, and ``adc_scan_lists`` (cpp/adcscan.cpp), the IVF-PQ probe
-(:func:`adc_lib`).
+path, ``adc_scan_lists`` (cpp/adcscan.cpp), the IVF-PQ probe
+(:func:`adc_lib`), and ``grepscan_match_lines`` (cpp/grepscan.cpp), the
+ask agent's grep scanner (:func:`grep_lib`).
 
-Loading is lazy: if the library is missing or older than its sources, the
+Loading is lazy: if the library is missing, older than its sources or
+built by another recipe than :data:`RECIPE` (its stamp file says which), the
 loader runs one quiet ``make`` (disable with
-``SEMTOOLS_TPU_NO_NATIVE_BUILD=1``); when that fails the tokenizer and the
-probe take their pure-Python implementations, whose answers are the same.
-This is host code: no device work depends on it.
+``SEMTOOLS_TPU_NO_NATIVE_BUILD=1``); when that fails the tokenizer, the
+probe and grep take their pure-Python implementations, whose answers are
+the same. This is host code: no device work depends on it.
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ _TRIED = False
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CPP_DIR = _PKG_DIR.parent / "cpp"
 BUILD_DIR = _PKG_DIR / "_build"
+# How build() makes the library; a library stamped otherwise (or not at all)
+# is rebuilt, as one from before the inherited ``CXX`` was dropped must be.
+RECIPE = "make with the Makefile's compiler, inherited CXX dropped\n"
 
 
 def lib_path() -> Path:
@@ -38,23 +43,51 @@ def lib_path() -> Path:
     return BUILD_DIR / f"libsemtools_native{suffix}"
 
 
+def recipe_path() -> Path:
+    return BUILD_DIR / "libsemtools_native.recipe"
+
+
+def _recipe_current() -> bool:
+    try:
+        return recipe_path().read_text() == RECIPE
+    except OSError:
+        return False
+
+
 def build() -> bool:
     """``make`` the library into ``_build/`` (only the library target);
-    True when it exists afterwards."""
+    True when it exists afterwards.
+
+    The Makefile's own compiler (``g++`` on PATH) builds it, not an
+    inherited ``CXX``: a compiler wrapper that links libstdc++ statically
+    gives the library a second C++ runtime, and its ``std::regex`` (the grep
+    scanner) then crashes in a process that has loaded the shared one, as
+    any process that imported numpy or torch has. A library not stamped
+    with :data:`RECIPE` is remade even when it is newer than its sources."""
     if not (CPP_DIR / "Makefile").exists():
         return False
     out = str(lib_path())
+    env = {k: v for k, v in os.environ.items() if k != "CXX"}
+    force = [] if _recipe_current() else ["-B"]
     try:
         proc = subprocess.run(
-            ["make", "-C", str(CPP_DIR), f"OUT={out}", out],
-            capture_output=True, timeout=120,
+            ["make", "-C", str(CPP_DIR), *force, f"OUT={out}", out],
+            capture_output=True, timeout=120, env=env,
         )
     except (OSError, subprocess.TimeoutExpired):
         return False
-    return proc.returncode == 0 and lib_path().exists()
+    if proc.returncode != 0 or not lib_path().exists():
+        return False
+    try:
+        recipe_path().write_text(RECIPE)
+    except OSError:
+        pass
+    return True
 
 
 def _stale(path: Path) -> bool:
+    if not _recipe_current():
+        return True
     try:
         so_mtime = path.stat().st_mtime
         inputs = [p for pat in ("*.cpp", "*.h", "Makefile") for p in CPP_DIR.glob(pat)]
@@ -76,8 +109,17 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_longlong,  # out capacity
         ctypes.POINTER(ctypes.c_longlong),  # out per-text offsets [n+1]
     ]
-    # Newer symbol than hashtok: bind leniently so a stale library still
-    # serves the tokenizer.
+    # Bound leniently: a library without one of these symbols still serves
+    # the tokenizer, and that consumer takes its Python path.
+    if hasattr(lib, "grepscan_match_lines"):
+        lib.grepscan_match_lines.restype = ctypes.c_longlong
+        lib.grepscan_match_lines.argtypes = [
+            ctypes.c_char_p,  # file path
+            ctypes.c_char_p,  # pattern
+            ctypes.c_int,  # ignore_case
+            ctypes.POINTER(ctypes.c_longlong),  # out line indices
+            ctypes.c_longlong,  # out capacity
+        ]
     if not hasattr(lib, "adc_scan_lists"):
         return
     lib.adc_scan_lists.restype = ctypes.c_longlong
@@ -125,3 +167,9 @@ def adc_lib() -> Optional[ctypes.CDLL]:
     """The library iff it carries the ADC probe (a stale build may not)."""
     lib = load()
     return lib if lib is not None and hasattr(lib, "adc_scan_lists") else None
+
+
+def grep_lib() -> Optional[ctypes.CDLL]:
+    """The library iff it carries the grep scanner."""
+    lib = load()
+    return lib if lib is not None and hasattr(lib, "grepscan_match_lines") else None

@@ -6,7 +6,9 @@ Counterpart of ``semtools_tpu/utils/tracing.py``, under the same switches:
   and a summary prints to stderr at exit (or on :func:`report`). When a
   CUDA context exists, a stage ends with ``torch.cuda.synchronize()`` so
   that work launched asynchronously is charged to the stage that launched
-  it. Off, a stage costs one environment lookup.
+  it. Off, a stage costs one environment lookup. torch is not imported
+  here: a command that never imports it (``parse``) has no context to wait
+  for.
 - ``SEMTOOLS_TPU_TRACE=<dir>``: wraps the command in ``torch.profiler``
   (CPU and, when present, CUDA activity) and writes a Chrome trace to
   ``<dir>/trace.json``.
@@ -18,14 +20,14 @@ import atexit
 import contextlib
 import os
 import sys
+import threading
 import time
 from collections import defaultdict
 from typing import Dict, Iterator, List, Tuple
 
-import torch
-
 _totals: Dict[str, float] = defaultdict(float)
 _counts: Dict[str, int] = defaultdict(int)
+_lock = threading.Lock()  # stages end on several threads (parse jobs, daemon readers)
 _registered = False
 
 
@@ -47,10 +49,12 @@ def stage(name: str) -> Iterator[None]:
     try:
         yield
     finally:
-        if torch.cuda.is_initialized():
+        torch = sys.modules.get("torch")
+        if torch is not None and torch.cuda.is_initialized():
             torch.cuda.synchronize()
-        _totals[name] += time.perf_counter() - t0
-        _counts[name] += 1
+        with _lock:
+            _totals[name] += time.perf_counter() - t0
+            _counts[name] += 1
 
 
 def timings() -> List[Tuple[str, float, int]]:
@@ -84,6 +88,7 @@ def maybe_device_trace() -> Iterator[None]:
     if not trace_dir:
         yield
         return
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

@@ -9,6 +9,7 @@ a distance may differ in the last digit, so bytes are not compared).
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -171,10 +172,23 @@ def test_queries_file_matches_jax_cli(env, capsys, monkeypatch, flags, stdin_doc
 
 
 def test_unported_modes_exit_1(env, capsys, monkeypatch):
+    """Sharded serving is the one mode still not ported: it exits 1 with a
+    message rather than serve another tier. ``parse`` and ``ask`` run now
+    (a text file passes through ``parse``; ``ask`` without a key fails as
+    the JAX CLI does)."""
     files, _ = env
-    for argv in (["parse", *files], ["ask", "q", *files]):
-        rc, out, err = _run(torch_cli.main, argv, capsys, monkeypatch)
-        assert rc == 1 and out == "" and "not ported yet" in err, argv
+    assert _run(torch_cli.main, ["workspace", "use", "sharded"], capsys, monkeypatch)[0] == 0
+    monkeypatch.setenv("SEMTOOLS_TPU_SHARDED", "1")
+    rc, out, err = _run(torch_cli.main, ["search", "q", *files, "-w", "sharded", "--device",
+                                         "cpu"], capsys, monkeypatch)
+    assert rc == 1 and out == "" and "not ported" in err and "SEMTOOLS_TPU_SHARDED" in err
+    monkeypatch.delenv("SEMTOOLS_TPU_SHARDED")
+    rc, out, err = _run(torch_cli.main, ["parse", *files], capsys, monkeypatch)
+    assert rc == 0 and out.split() == files and "not ported" not in err
+    monkeypatch.delenv("OPENAI_API_KEY", raising=False)
+    runs = [_run(main, ["ask", "q", *files], capsys, monkeypatch)
+            for main in (jax_cli.main, torch_cli.main)]
+    assert runs[0] == runs[1] and runs[1][0] == 1 and "OpenAI API key not found" in runs[1][2]
     rc, _, err = _run(torch_cli.main, ["search", "q", "--device", "cpu"], capsys, monkeypatch,
                       stdin="")
     assert rc == 1 and "No input provided" in err  # as the JAX CLI
@@ -211,14 +225,48 @@ def test_device_is_explicit(monkeypatch):
 
 def test_port_search_never_imports_jax(env, tmp_path):
     """A plain search, workspace searches (int8 and int4 tiers), a forced
-    IVF-PQ build (``workspace index --force``) and a search it serves, a
-    daemon serving (warm-up included) and a search forwarded to it, in a
-    child process that can see only the port (``semtools_tpu_torch/`` and
-    ``cpp/``, without the JAX package or its ``_native/`` build), import
-    nothing of jax or of the JAX package."""
+    IVF-PQ build (``workspace index --force``) and a search it serves,
+    ``parse -b local`` and ``parse`` against a fake LlamaParse, ``ask`` in
+    chat, responses and stdin modes against a fake OpenAI (plain and ``-w``),
+    a daemon serving (warm-up included) and a search and an ``ask`` forwarded
+    to it, in a child process that can see only the port
+    (``semtools_tpu_torch/`` and ``cpp/``, without the JAX package or its
+    ``_native/`` build), import nothing of jax, of the JAX package or of
+    ``httpx``; the grep tool runs the port's native scanner."""
     import shutil
 
+    from tests.fake_servers import (
+        FakeLlamaParse,
+        FakeOpenAI,
+        FakeServer,
+        chat_text_response,
+        chat_tool_call_response,
+        responses_text,
+        responses_tool_call,
+    )
+
     files, _ = env
+    doc = tmp_path / "page.html"
+    doc.write_text("<h1>Guard</h1><p>lazy dog</p>")
+    pdf = tmp_path / "scan.pdf"
+    pdf.write_bytes(b"%PDF-1.4 fake")
+    search = {"query": "lazy dog", "config": {"top_k": 2}}
+    servers = {
+        "parse": FakeServer(FakeLlamaParse(fail_uploads=1)),
+        "chat": FakeServer(FakeOpenAI([
+            chat_tool_call_response("search", search),
+            chat_tool_call_response("grep", {"pattern": r"lazy \w+", "is_regex": True}),
+            chat_text_response("chat answer")])),
+        "responses": FakeServer(FakeOpenAI([responses_tool_call("search", search),
+                                            responses_text("responses answer")])),
+        "stdin": FakeServer(FakeOpenAI([chat_text_response("stdin answer")])),
+        "forwarded": FakeServer(FakeOpenAI([chat_tool_call_response("search", search),
+                                            chat_text_response("forwarded answer")])),
+    }
+    urls = {k: srv.url for k, srv in servers.items()}
+    cfg = tmp_path / "parse.json"
+    cfg.write_text(json.dumps({"parse": {"api_key": "k", "base_url": urls["parse"],
+                                         "check_interval": 0.01, "retry_delay_ms": 1}}))
     root = tmp_path / "port_only"
     shutil.copytree(REPO / "semtools_tpu_torch", root / "semtools_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -247,6 +295,22 @@ def test_port_search_never_imports_jax(env, tmp_path):
         "assert native.adc_lib() is not None\n"
         "os.environ.pop('SEMTOOLS_TPU_FORCE_ANN')\n"
         "import contextlib, io, json, threading, time\n"
+        f"assert main(['parse', '-b', 'local', {str(doc)!r}]) == 0\n"
+        f"assert main(['parse', '-c', {str(cfg)!r}, {str(pdf)!r}]) == 0\n"
+        f"urls = {urls!r}\n"
+        "ask = ['ask', 'where is the dog?', '--api-key', 'k']\n"
+        "from semtools_tpu_torch.utils import grepscan\n"
+        "greps = []\n"
+        "real_match = grepscan.match_lines\n"
+        "grepscan.match_lines = lambda *a: greps.append(a) or real_match(*a)\n"
+        f"assert main([*ask, *{files!r}, '--api-mode', 'chat', '--base-url', urls['chat'],\n"
+        "             '--device', 'cpu']) == 0\n"
+        "assert greps, 'the grep tool did not run the native scanner'\n"
+        f"assert main([*ask, *{files!r}, '-w', 'guard', '--api-mode', 'responses',\n"
+        "             '--base-url', urls['responses'], '--device', 'cpu']) == 0\n"
+        "sys.stdin = io.StringIO('piped text')\n"
+        "assert main([*ask, '--api-mode', 'chat', '--base-url', urls['stdin']]) == 0\n"
+        "sys.stdin = sys.__stdin__\n"
         "from semtools_tpu_torch import daemon\n"
         "os.environ.update(SEMTOOLS_TPU_DAEMON_DIR=sys.argv[2], SEMTOOLS_WORKSPACE='guard',\n"
         "                  SEMTOOLS_TORCH_DEVICE='cpu')\n"
@@ -260,11 +324,16 @@ def test_port_search_never_imports_jax(env, tmp_path):
         "with contextlib.redirect_stdout(buf):\n"
         f"    rc = daemon.forward(['search', 'lazy dog', *{files!r}, '-j'], None)\n"
         "assert rc == 0 and json.loads(buf.getvalue())['results'], (rc, buf.getvalue())\n"
+        "buf = io.StringIO()\n"
+        "with contextlib.redirect_stdout(buf):\n"
+        f"    rc = daemon.forward([*ask, *{files!r}, '--api-mode', 'chat', '--base-url',\n"
+        "                         urls['forwarded']], None)\n"
+        "assert rc == 0 and buf.getvalue().endswith('forwarded answer\\n'), buf.getvalue()\n"
         "assert daemon.stop()\n"
         "th.join(timeout=30)\n"
         "assert not th.is_alive()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'semtools_tpu'))\n"
+        "('jax', 'jaxlib', 'semtools_tpu', 'httpx'))\n"
         "assert not bad, bad\n"
         "assert native.lib_path().is_relative_to(sys.argv[1]), native.lib_path()\n"
         "print('NO_JAX_OK')\n"
@@ -272,10 +341,13 @@ def test_port_search_never_imports_jax(env, tmp_path):
     child_env = dict(os.environ, HOME=str(tmp_path / "home"), PYTHONPATH=str(root),
                      SEMTOOLS_TPU_NO_FETCH="1", SEMTOOLS_TPU_ALLOW_FALLBACK="1")
     child_env.pop("SEMTOOLS_WORKSPACE", None)
-    proc = subprocess.run([sys.executable, "-c", script, str(root), str(tmp_path / "run")],
-                          cwd=str(tmp_path),
-                          env=child_env, capture_output=True, text=True,
-                          stdin=subprocess.DEVNULL, timeout=300)
+    with contextlib.ExitStack() as stack:
+        for srv in servers.values():
+            stack.enter_context(srv)
+        proc = subprocess.run([sys.executable, "-c", script, str(root), str(tmp_path / "run")],
+                              cwd=str(tmp_path),
+                              env=child_env, capture_output=True, text=True,
+                              stdin=subprocess.DEVNULL, timeout=300)
     assert proc.returncode == 0, proc.stderr
     out = proc.stdout
     assert out.strip().endswith("NO_JAX_OK")
@@ -283,6 +355,11 @@ def test_port_search_never_imports_jax(env, tmp_path):
     assert "lazy dog" not in proc.stderr and "Updating workspace" in proc.stderr
     assert "int4-mxu-scan" in out  # the second workspace search served the int4 tier
     assert "Index ready: ivf-pq serving" in out and "Index: Yes (ivf-pq)" in out
+    assert ".local.md" in out and "Job creation failed (attempt 1/11)" in proc.stderr
+    for answer in ("chat answer", "responses answer", "stdin answer"):
+        assert f"\n{answer}\n" in out
+    assert servers["parse"].app.upload_attempts == 2
+    assert all(not srv.app.script for k, srv in servers.items() if k != "parse")
 
 
 def test_port_probes_never_import_jax(tmp_path):
