@@ -7,8 +7,10 @@ Needs a CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and ``make``/``g++``;
 exits non-zero without them. Phases:
 
 1. build: compiles the scan kernels (``semtools_tpu_torch/csrc``, one
-   ``nvcc`` per source, all at once) for sm_90a and the native tokenizer
-   (``cpp/`` into ``semtools_tpu_torch/_build/``);
+   ``nvcc`` per source, all at once) for sm_90a, the native tokenizer
+   (``cpp/`` into ``semtools_tpu_torch/_build/``) and the native daemon
+   client (``semtools_tpu_torch/native/semtools_client.cpp`` into
+   ``_build/semtools-client``);
 2. f32 kernels: each fused kernel against its plain PyTorch version on the
    card, at N = 2M and 10M rows x D = 256 f32 (plus bf16 at 2M),
    Q in {1, 8, 32}, k in {3, 10, 64}, ragged n_true, planted duplicate
@@ -87,8 +89,12 @@ exits non-zero without them. Phases:
    ``SEMTOOLS_TPU_DAEMON_DIR``): a search forwarded from a child process
    against the same search in a child that does not forward, 8 concurrent
    child clients (one coalesced scan or a few; each output equal to its
-   direct run; the int8 kernels launched from the daemon's threads), an
-   edit then a forwarded search (patched, not rebuilt), and ``stop``;
+   direct run; the int8 kernels launched from the daemon's threads), the
+   forwarded search through the native client 10 times from new processes
+   (stdout and exit code equal to the Python client's; the median wall
+   logged), an edit then a forwarded search (patched, not rebuilt), and
+   ``stop``; then the native client with no daemon, which must exec
+   ``python -m semtools_tpu_torch.cli`` and print the daemon's answer;
 9. IVF-PQ: the index layer (``semtools_tpu_torch/index``) on a seeded,
    clustered 100,000 x 256 set (nlist 1024, m 32), built twice on the card
    (byte-equal: the build's determinism) and once on the CPU (the full
@@ -132,6 +138,23 @@ exits non-zero without them. Phases:
    the cache; ``parse`` against a fake LlamaParse on localhost with one
    injected 5xx must take the retry, and a rerun must send no request.
    Every run logs its wall time and stages (``SEMTOOLS_TPU_TIMINGS``).
+11. sharded serving, in a child process whose mesh is 4 shards of the card
+   (``SEMTOOLS_TORCH_VIRTUAL_DEVICES=4``): ``parallel.dryrun``'s checks on
+   the card; the sharded scans at phases 2-4's sizes (2M x 256 f32, 10M x
+   256 int8, 10M x 256 int4 plain and masked; Q 8, k 10, a ragged n_true
+   that leaves the last shard partly padding) against the single-device
+   kernel path on the same tensors (f32 under phase 2's near-tie rule, int8
+   exactly, int4 as candidate sets; planted duplicates lowest first), each
+   kernel launched once per shard, both timed; then on the workspace of
+   phase 7 every command on one device (``SEMTOOLS_TPU_SHARDED=0``) and on
+   the mesh (``=1``), outputs equal: ``search -w``, ``-Q 8``, the 300-file
+   subset, ``-m``, a one-line edit served by a patch of the sharded corpus,
+   the f32 tier, the int4 rung, the reduced-64d rung (a quarter of the
+   budget: the budget scales with the mesh), each ``workspace status``
+   naming ``sharded-*-scan[4]``, and a plain ``search -Q 8`` over the 1M
+   lines through ``search.py``'s sharded branch. The counts are reset
+   before each run on the mesh and read after: their sums are each
+   kernel's ``sharded_launches``.
 
 Phases 6-10 check their hits against a plain exact scan of the same
 embeddings on the card (tolerance as in phase 2), and every kernel of each
@@ -140,7 +163,8 @@ The launch floor (an empty kernel through the kernels' ctypes path) is
 timed after the build. The last line of stdout is ``{"ok": true,
 "device": {...}}``; the lines before it are the card's name and power limit,
 the ``stream_roof_gbps`` line, and the per-kernel JSON summary (with
-``device_ms``, ``floor_ms`` and ``ask_launches`` beside the contract's keys;
+``device_ms``, ``floor_ms``, ``ask_launches`` and ``sharded_launches`` beside the
+contract's keys;
 a probe's entry is the call named in PROBES).
 """
 
@@ -435,6 +459,10 @@ def build_phase():
     if not native.build():
         raise RuntimeError(f"native tokenizer build (make -C cpp) failed: {native.lib_path()}")
     log(f"build: native tokenizer into {native.lib_path().relative_to(REPO)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    client = native.build_client()
+    log(f"build: native daemon client into {client.relative_to(REPO)} in "
         f"{time.perf_counter() - t0:.2f} s")
 
 
@@ -1266,6 +1294,7 @@ def workspace_phase(files, qfile, model, corpus, starts):
             edited2[int(starts[daemon_edit[0]]) + daemon_edit[1]] = model.encode(
                 [daemon_edit[2]])[0]
             ann_steps(files, qfile, subset, model, edited2, starts)
+            sharded_phase(files, qfile, subset, thr)
         finally:
             if old_home is None:
                 os.environ.pop("HOME", None)
@@ -1498,6 +1527,7 @@ def daemon_steps(files):
             f"the daemon: {in_daemon}); direct {wall_direct:.3f} s wall (torch, CUDA, the model, "
             f"the kernels and the corpus build in the process; stages: {exit_stages(err)}): "
             f"equal outputs")
+        native_client_forwarded(files, forwarded)
 
         os.environ["SEMTOOLS_TPU_COALESCE"] = "0"
         try:  # each query's direct run, in this process, neither forwarded nor merged
@@ -1567,6 +1597,11 @@ def daemon_steps(files):
     if not stopped or server.is_alive():
         raise AssertionError("daemon stop: the server did not shut down")
     log(f"daemon: stopped; launches in the clients' run {launches}")
+    os.environ["SEMTOOLS_WORKSPACE"] = "smoke"
+    try:
+        native_client_fallback(files, QUERIES[1], after_edit)
+    finally:
+        os.environ.pop("SEMTOOLS_WORKSPACE", None)
     return {"forwarded": forwarded, "clients": outs, "edit": after_edit}, edit
 
 
@@ -2249,6 +2284,326 @@ def ask_int4_steps(files, subset, model, corpus, starts):
     log(f"ask: the int4 rung's search tool outputs equal the plain scan (max |d| err {err:.3g})")
 
 
+# -- phase 11: sharded serving ------------------------------------------------------
+
+SHARDS = 4  # the mesh of phase 11: one card cut into four shards
+SHARDED_PATH = ("fused_tilemax", "select_subtiles", "fused_rescan_topk", "int8_tilemax",
+                "int8_rescan_topk", "int4_sims_max")
+SHARDED_LAUNCHES = {}  # kernel -> launches on phase 11's sharded main path
+
+
+def _client_env_argv(files, query):
+    from semtools_tpu_torch.utils import native
+
+    env = dict(os.environ, PYTHONPATH=str(REPO), SEMTOOLS_TPU_DAEMON="auto",
+               SEMTOOLS_TPU_PYTHON=sys.executable)
+    return env, [str(native.client_path()), "search", query, *files, "--top-k", "10", "-j"]
+
+
+def native_client_forwarded(files, forwarded):
+    """The native client (built in phase 1), with the daemon up, from a child
+    process 10 times: stdout and exit code equal to the Python client's
+    ``forwarded``; logs the median wall."""
+    from semtools_tpu_torch import daemon
+
+    if not daemon.ping():
+        raise AssertionError("native client: the daemon is not up")
+    env, argv = _client_env_argv(files, QUERIES[0])
+    walls = []
+    for i in range(10):
+        t0 = time.perf_counter()
+        r = subprocess.run(argv, env=env, cwd=str(REPO), stdin=subprocess.DEVNULL,
+                           capture_output=True, text=True, timeout=300)
+        walls.append(time.perf_counter() - t0)
+        if r.returncode != 0 or r.stdout != forwarded:
+            raise AssertionError(f"native client run {i}: exit {r.returncode}, stdout "
+                                 f"{'equal' if r.stdout == forwarded else 'differs'}: "
+                                 f"{r.stderr[-1000:]}")
+    walls.sort()
+    log(f"daemon: search -w through the native client, 10 runs from new processes: "
+        f"median {(walls[4] + walls[5]) / 2:.4f} s wall (min {walls[0]:.4f}, max "
+        f"{walls[-1]:.4f}); stdout and exit code equal to the Python-forwarded run ({CARD})")
+
+
+def native_client_fallback(files, query, after_edit):
+    """The native client with the daemon stopped: it execs ``python -m
+    semtools_tpu_torch.cli``, which prints ``after_edit``."""
+    from semtools_tpu_torch import daemon
+
+    if daemon.ping():
+        raise AssertionError("native client fallback: the daemon is still up")
+    env, argv = _client_env_argv(files, query)
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, env=env, cwd=str(REPO), stdin=subprocess.DEVNULL,
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0 or r.stdout != after_edit:
+        raise AssertionError(f"native client, no daemon: exit {r.returncode}, stdout "
+                             f"{'equal' if r.stdout == after_edit else 'differs'}: "
+                             f"{r.stderr[-1000:]}")
+    log(f"daemon: with the daemon stopped the native client ran python -m "
+        f"semtools_tpu_torch.cli: {time.perf_counter() - t0:.3f} s wall, the daemon's answer")
+
+
+def same_output(what, single: str, sharded: str) -> float:
+    """Two search outputs (JSON, one document or NDJSON lines) equal apart
+    from distances, which agree within TOL; returns the max |difference|."""
+    def docs(text):
+        return [json.loads(x) for x in text.splitlines() if x.strip()] \
+            if text.lstrip().startswith('{"query"') else [json.loads(text)]
+
+    dists = ([], [])
+
+    def strip(obj, out):
+        if isinstance(obj, dict):
+            return {k: (out.append(v) if k == "distance" else strip(v, out))
+                    for k, v in obj.items()}
+        if isinstance(obj, list):
+            return [strip(v, out) for v in obj]
+        return obj
+
+    a, b = strip(docs(single), dists[0]), strip(docs(sharded), dists[1])
+    if a != b or len(dists[0]) != len(dists[1]) or not dists[0]:
+        raise AssertionError(f"{what}: the sharded output differs from the single-device one")
+    err = max(abs(x - y) for x, y in zip(*dists))
+    if not err <= TOL:
+        raise AssertionError(f"{what}: distances differ by {err} > {TOL}")
+    return err
+
+
+def sharded_kernel_steps(mesh):
+    """(b): each sharded scan at phases 2-4's sizes against the single-device
+    kernel path on the same tensors (Q 8, k 10, a ragged n_true that leaves
+    the last shard partly padding, planted duplicates lowest first), each
+    kernel launched once per shard, and both timed."""
+    import torch
+
+    from semtools_tpu_torch.ops import fused_scan as fs
+    from semtools_tpu_torch.ops import int4_scan as i4
+    from semtools_tpu_torch.ops import int8_scan as i8
+    from semtools_tpu_torch.ops import kernels
+    from semtools_tpu_torch.parallel import scan as sh
+    from semtools_tpu_torch.parallel.mesh import shard_corpus, shard_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    qn, k = 8, 10
+
+    def once_per_shard(fn, names, what):
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {n: kernels.launch_counts()[n] for n in names}
+        if any(v != SHARDS for v in got.values()):
+            raise AssertionError(f"{what}: launches {got}, want {SHARDS} each")
+        return out
+
+    def times(what, single, sharded):
+        t = {"single_ms": cuda_ms(single), "sharded_ms": cuda_ms(sharded),
+             "single_device_ms": device_ms(single), "sharded_device_ms": device_ms(sharded)}
+        log(f"sharded: {what}: one device {t['single_ms']:.4f} ms events, "
+            f"{t['single_device_ms']:.4f} ms device; {SHARDS} shards {t['sharded_ms']:.4f} ms "
+            f"events, {t['sharded_device_ms']:.4f} ms device ({CARD})")
+
+    n = 2_000_000
+    n_true = n - 1000
+    e, dups = make_corpus(n, torch.float32, n_true, gen)
+    q = unit_rows(qn, gen)
+    q[0] = e[5]
+    es, _ = shard_corpus(e[:n_true], mesh)
+    if not es.shape[0] - n_true > 0 or not es.n_local * (SHARDS - 1) < n_true:
+        raise AssertionError("the f32 corpus leaves no shard partly padding")
+    d, i = once_per_shard(lambda: sh.sharded_topk_scan_device(q, es, n_true, k),
+                          F32_PATH, "sharded f32 top-k")
+    ref_d, ref_i = fs.fused_topk_scan(q, e, k + 1, n_true)
+    err = agree("sharded f32 top-k", 1.0 - d, 1.0 - ref_d, i, ref_i)
+    if i[0, :5].tolist() != sorted(dups):
+        raise AssertionError(f"sharded f32: planted duplicates {i[0, :5].tolist()}")
+    times(f"f32 top-k, {n_true} x {D}, Q {qn}, k {k}",
+          lambda: fs.fused_topk_scan(q, e, k, n_true),
+          lambda: sh.sharded_topk_scan_device(q, es, n_true, k))
+    log(f"sharded: f32 top-k equals the single-device kernel path (max |d| err {err:.3g}); "
+        f"K1a, sel, K1b launched once per shard")
+    del e, es
+
+    n = 10_000_000
+    n_true = n - 1000
+    e8 = torch.randint(-127, 128, (n, D), generator=gen, device="cuda", dtype=torch.int8)
+    e8[[127, 128, n // 2, n_true - 1]] = e8[5].clone()
+    q = torch.randn((qn, D), generator=gen, device="cuda")
+    q[0] = e8[5].float()
+    e8s, _ = shard_corpus(e8[:n_true], mesh)
+    d, i = once_per_shard(lambda: sh.sharded_int8_topk_scan_device(q, e8s, E_SCALE, k, n_true),
+                          INT8_PATH, "sharded int8 top-k")
+    d1, i1 = i8.int8_topk_scan(q, e8, E_SCALE, k, n_true=n_true)
+    if not (torch.equal(d, d1) and torch.equal(i, i1)):
+        raise AssertionError("sharded int8 top-k: sims or rows differ from the single device")
+    if i[0, :5].tolist() != [5, 127, 128, n // 2, n_true - 1]:
+        raise AssertionError(f"sharded int8: planted duplicates {i[0, :5].tolist()}")
+    times(f"int8 top-k, {n_true} x {D}, Q {qn}, k {k}",
+          lambda: i8.int8_topk_scan(q, e8, E_SCALE, k, n_true=n_true),
+          lambda: sh.sharded_int8_topk_scan_device(q, e8s, E_SCALE, k, n_true))
+    log("sharded: int8 top-k equals the single-device kernel path exactly; K3a, sel, K3b "
+        "launched once per shard")
+    del e8, e8s
+
+    p4, dups = make_packed(n, n_true, gen)
+    q, _, _ = int4_queries(p4, qn, gen)
+    p4s, _ = shard_corpus(p4[:n_true], mesh, fill=i4.PACKED_ZERO_BYTE)
+    half = (torch.rand(n_true, generator=gen, device="cuda") < 0.5).to(torch.uint8)
+    half[dups] = 1
+    for mask, name in ((None, "int4_sims_max"), (half, "int4_sims_max_masked")):
+        ms = None if mask is None else shard_rows(mask, mesh)
+        ids = once_per_shard(lambda: sh.sharded_int4_deep_candidates_device(
+            q, p4s, n_true, mask=ms), (name,), f"sharded {name}")
+        want = i4.int4_deep_candidates(q, p4, n_true=n_true, mask=mask)
+        for r in range(qn):
+            got_r, want_r = ids[r][ids[r] < n_true], want[r][want[r] < n_true]
+            if not torch.equal(got_r.sort().values, want_r.sort().values):
+                raise AssertionError(f"sharded {name}: query {r}'s candidate set differs")
+        if not set(dups) <= set(ids[0].tolist()):
+            raise AssertionError(f"sharded {name}: the planted rows are not candidates")
+        times(f"{name} deep candidates, {n_true} x {D // 2} B, Q {qn}",
+              lambda: i4.int4_deep_candidates(q, p4, n_true=n_true, mask=mask),
+              lambda: sh.sharded_int4_deep_candidates_device(q, p4s, n_true, mask=ms))
+    log("sharded: int4 deep-candidate sets equal the single device's, plain and masked; "
+        "K6 launched once per shard")
+
+
+def sharded_workspace_steps(args):
+    """(c) and (d), each command run on one device (SEMTOOLS_TPU_SHARDED=0)
+    and on the mesh (=1) in this process, outputs equal. The counts are reset
+    just before each run on the mesh and read just after; their sums are the
+    sharded main path's launches."""
+    from semtools_tpu_torch.ops import kernels
+
+    files, subset, qfile, thr = args["files"], args["subset"], args["qfile"], args["thr"]
+    ws = ["-w", "smoke", "--top-k", "10", "-j"]
+    launches = {}
+
+    def on_mesh(argv):
+        kernels.reset_launch_counts()
+        out = run_cli(argv)
+        for name, n in kernels.launch_counts().items():
+            launches[name] = launches.get(name, 0) + n
+        return out
+
+    def both(label, argv, env=(), single_env=()):
+        outs, walls = [], []
+        for sharded in ("0", "1"):
+            extra = dict(env)
+            if sharded == "0":
+                extra.update(single_env)
+            old = {k: os.environ.get(k) for k in (*extra, "SEMTOOLS_TPU_SHARDED")}
+            os.environ.update(extra, SEMTOOLS_TPU_SHARDED=sharded)
+            try:
+                out, err, wall, stages = (on_mesh if sharded == "1" else run_cli)(argv)
+                status = run_cli(["workspace", "status", "smoke"])[0] if "-w" in argv else ""
+            finally:
+                for key, v in old.items():
+                    if v is None:
+                        os.environ.pop(key, None)
+                    else:
+                        os.environ[key] = v
+            outs.append(out)
+            walls.append((wall, stages, status))
+        err = same_output(label, *outs)
+        tier = re.search(r"Index: Yes \(([^)]*)\)", walls[1][2])
+        log(f"sharded: {label}: one device {walls[0][0]:.3f} s wall (stages {walls[0][1]}); "
+            f"{SHARDS} shards {walls[1][0]:.3f} s wall ({tier.group(1) if tier else 'plain search'}; "
+            f"stages {walls[1][1]}); outputs equal (max |d| err {err:.3g})")
+        return tier.group(1) if tier else None, walls[1][1]
+
+    tiers = {}
+    tiers["warm"], _ = both("search -w", ["search", QUERIES[0], *files, *ws])
+    tiers["-Q 8"], _ = both("search -w -Q 8", ["search", "-Q", qfile, *files, *ws])
+    tiers["subset"], _ = both(f"search -w, {len(subset)}-file subset",
+                              ["search", QUERIES[2], *subset, *ws])
+    tiers["-m"], _ = both(f"search -w -m {thr:.4f}",
+                          ["search", QUERIES[3], *files, "-w", "smoke", "-m", str(thr), "-j"])
+    edit_file, edit_line = 11, 77
+    lines = Path(files[edit_file]).read_text().split("\n")
+    lines[edit_line] = "sharded patch of the quick brown fox"
+    Path(files[edit_file]).write_text("\n".join(lines))
+    os.environ["SEMTOOLS_TPU_SHARDED"] = "1"
+    try:
+        on_mesh(["search", QUERIES[1], *files, *ws])
+        stages = stage_seconds()
+    finally:
+        os.environ.pop("SEMTOOLS_TPU_SHARDED")
+    if "slot_corpus_build" in stages or "slot_corpus_patch" not in stages:
+        raise AssertionError(f"sharded edit: stages {sorted(stages)}: not served by a patch")
+    log(f"sharded: one-line edit on the mesh: patched in {stages['slot_corpus_patch'] * 1e3:.1f}"
+        f" ms, no slot_corpus_build")
+    tiers["edit"], _ = both("search -w after the edit", ["search", QUERIES[1], *files, *ws])
+    tiers["f32"], _ = both("search -w, f32 tier", ["search", QUERIES[0], *files, *ws],
+                           {"SEMTOOLS_TPU_STORE_INT8": "0"})
+    tiers["int4"], _ = both("search -w, int4 rung", ["search", QUERIES[0], *files, *ws],
+                            {"SEMTOOLS_TPU_STORE_INT4": "1"})
+    rung, budget = REDUCED_BUDGETS[0]
+    tiers[rung], _ = both(f"search -w, {rung} rung", ["search", QUERIES[0], *files, *ws],
+                          {"SEMTOOLS_TPU_DEVICE_CACHE_BYTES": str(budget // SHARDS)},
+                          {"SEMTOOLS_TPU_DEVICE_CACHE_BYTES": str(budget)})
+    want = {"warm": "sharded-int8-scan[4]", "-Q 8": "sharded-int8-scan[4]",
+            "subset": "sharded-int8-scan[4]", "-m": "sharded-int8-scan[4]",
+            "edit": "sharded-int8-scan[4]", "f32": "sharded-exact-scan[4]",
+            "int4": "sharded-int4-scan[4]", rung: f"sharded-int8-scan[4]-{rung}"}
+    if tiers != want:
+        raise AssertionError(f"sharded tiers {tiers}, want {want}")
+    both("plain search -Q 8 (search.py's sharded branch)",
+         ["search", "-Q", qfile, *files, "--top-k", "10", "-j"])
+    log(f"sharded: main path's kernel launches on the mesh: {launches}")
+    missing = [name for name in SHARDED_PATH if not launches.get(name)]
+    if missing:
+        raise AssertionError(f"the sharded main path never launched {missing}")
+    return launches
+
+
+def sharded_child(args_path: str) -> int:
+    """Phase 11 in a process of its own (``SEMTOOLS_TORCH_VIRTUAL_DEVICES=4``
+    fixes its mesh): (a) the dry run, (b) the kernel checks, (c)-(d) the
+    workspace and plain search; writes the sharded main path's launches."""
+    import torch
+
+    from semtools_tpu_torch.parallel.dryrun import dryrun_multichip
+    from semtools_tpu_torch.parallel.mesh import corpus_mesh
+
+    global CARD
+    args = json.loads(Path(args_path).read_text())
+    CARD = args["card"]
+    mesh = corpus_mesh(device="cuda")
+    if mesh.size != SHARDS or set(mesh.devices) != {torch.device("cuda", 0)}:
+        raise AssertionError(f"phase 11's mesh is {mesh}, not {SHARDS} shards of cuda:0")
+    t0 = time.perf_counter()
+    log(f"sharded: dryrun_multichip({SHARDS}) on the card: {dryrun_multichip(SHARDS)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    sharded_kernel_steps(mesh)
+    launches = sharded_workspace_steps(args)
+    Path(args["out"]).write_text(json.dumps(launches))
+    return 0
+
+
+def sharded_phase(files, qfile, subset, thr):
+    """Phase 11 (sharded serving) in a child process on the card; its
+    sharded main path's launches go to SHARDED_LAUNCHES."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="semtools_smoke_sharded_") as tmp:
+        args = Path(tmp) / "args.json"
+        args.write_text(json.dumps({"files": files, "qfile": qfile, "subset": subset,
+                                    "thr": thr, "card": CARD,
+                                    "out": str(Path(tmp) / "launches.json")}))
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("SEMTOOLS_TPU_DAEMON", "SEMTOOLS_WORKSPACE",
+                                    "SEMTOOLS_TPU_FORCE_ANN", "SEMTOOLS_TPU_STORE"))}
+        env.update(SEMTOOLS_TORCH_VIRTUAL_DEVICES=str(SHARDS), SEMTOOLS_TPU_DAEMON="off",
+                   PYTHONPATH=str(REPO))
+        proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--sharded-child",
+                               str(args)], env=env, cwd=str(REPO), stdin=subprocess.DEVNULL,
+                              timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 11 (sharded serving) failed: exit {proc.returncode}")
+        SHARDED_LAUNCHES.update(json.loads((Path(tmp) / "launches.json").read_text()))
+    log(f"sharded: phase 11 done in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not (REPO / "semtools_tpu_torch").is_dir() or not (REPO / "cpp").is_dir():
         print("error: run chip_smoke.py from a checkout of the repository", file=sys.stderr)
@@ -2260,6 +2615,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("error: no CUDA device: the port's kernels need one", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--sharded-child"]:
+        return sharded_child(sys.argv[2])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
@@ -2350,6 +2707,7 @@ def main() -> int:
             "floor_ms": floor[1], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "ask_launches": ASK_LAUNCHES.get(name, 0),
+            "sharded_launches": SHARDED_LAUNCHES.get(name, 0),
         })
     for name, r in probes.items():  # launches on each probe module's own run
         summary["kernels"].append({
@@ -2360,6 +2718,7 @@ def main() -> int:
             "device_ms": r["device_ms"], "floor_ms": floor[1], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "ask_launches": ASK_LAUNCHES.get(name, 0),
+            "sharded_launches": SHARDED_LAUNCHES.get(name, 0),
         })
     log(f"stream_roof_gbps: {roof:.1f} ({card or 'card name and power limit unavailable'})")
     log(card or "nvidia-smi: name and power limit unavailable")

@@ -448,6 +448,14 @@ def daemon_cmd(args) -> int:
         if daemon.ping():
             print("Daemon already running.")
             return 0
+        # The native client (a `semtools` that forwards without starting
+        # Python) is built beside the daemon it talks to.
+        from semtools_tpu_torch.utils import native
+
+        try:
+            native.build_client()
+        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+            print(f"Warning: native client not built ({e})", file=sys.stderr)
         log_path = daemon.socket_path().parent / "daemon-torch.log"
         log_path.parent.mkdir(parents=True, exist_ok=True)
         cmd = [sys.executable, "-m", "semtools_tpu_torch.cli", "daemon", "run"]

@@ -406,6 +406,11 @@ def serve(warm: bool = True) -> None:
     os.chmod(path.parent, 0o700)
     if path.exists():
         path.unlink()
+    # The mesh is this process's: fixed now, so a request's
+    # SEMTOOLS_TORCH_VIRTUAL_DEVICES cannot re-shape it.
+    from semtools_tpu_torch.parallel.mesh import virtual_devices
+
+    virtual_devices()
     if warm:
         _warm()
     from semtools_tpu_torch.store import coalesce

@@ -142,14 +142,17 @@ class IvfPqIndex:
         keep_vectors: bool = True,
         progress=None,
         device=None,
+        mesh=None,
     ) -> "IvfPqIndex":
         """Build over the rows of ``x`` ([N, D]: a numpy array, an mmap, a
         lazy row view with ``shape`` and ``__getitem__``, or a tensor) on
         ``device``: given, else the device of a tensor ``x``, else the
         default (:func:`~semtools_tpu_torch.utils.platform.resolve_device`).
         ``progress``: optional ``callable(str)`` invoked at phase boundaries
-        and ~10% steps of the fused pass. Stages (``SEMTOOLS_TPU_TIMINGS``):
-        ``ann_train``, ``ann_encode``, ``ann_finalize``."""
+        and ~10% steps of the fused pass. ``mesh`` (``parallel/mesh.py``)
+        trains the coarse quantizer with the data-parallel Lloyd step.
+        Stages (``SEMTOOLS_TPU_TIMINGS``): ``ann_train``, ``ann_encode``,
+        ``ann_finalize``."""
         from semtools_tpu_torch.utils.platform import resolve_device
 
         if device is None and torch.is_tensor(x):
@@ -179,7 +182,8 @@ class IvfPqIndex:
             else:
                 sample = _rows(x, slice(None), dev)
             _report(f"training coarse quantizer ({nlist} lists, {train_rows} sample rows)")
-            centroids, _ = kmeans_fit(sample, nlist, iters=train_iters, seed=seed)
+            centroids, _ = kmeans_fit(sample, nlist, iters=train_iters, seed=seed, mesh=mesh)
+            centroids = centroids.to(dev)
             del sample
             chunk_rows = _chunk_rows(n, nlist, m)
             # RESIDUAL PQ (IVFADC): the codebooks train on x - centroid of a

@@ -13,16 +13,21 @@ both packages start from the same centroids. The segment sum is a one-hot
 matmul per chunk of rows, added chunk after chunk: the BLAS sums in a fixed
 order, so two fits of the same rows on one device are byte-equal (a float
 ``index_add_`` on CUDA adds in an order that changes from run to run). Empty
-clusters keep their centroid. The data-parallel step of the JAX package
-(``make_sharded_kmeans_step``) waits for the port's ``parallel/``.
+clusters keep their centroid. :func:`make_sharded_kmeans_step` is the
+data-parallel step over a mesh (``parallel/mesh.py``): rows sharded, each
+shard's sums and counts added on the mesh's first device (and across
+processes), the update replicated.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from semtools_tpu_torch.parallel import multihost
+from semtools_tpu_torch.parallel.mesh import Mesh, ShardedRows
 
 # One-hot elements per chunk of the segment sum (256 MB of f32).
 _SUM_CHUNK = 1 << 26
@@ -66,20 +71,68 @@ def kmeans_step(x: torch.Tensor, centroids: torch.Tensor, k: int):
     Empty clusters keep their previous centroid."""
     assign = _assign(x, centroids)
     sums, counts = _segment_sums(x, assign, k)
+    return _update(sums, counts, centroids), assign
+
+
+def _update(sums, counts, centroids):
     new = sums / torch.clamp(counts, min=1.0)[:, None]
-    return torch.where(counts[:, None] > 0, new, centroids), assign
+    return torch.where(counts[:, None] > 0, new, centroids)
 
 
-def kmeans_fit(x, k: int, iters: int = 10, seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fit k centroids on the device of ``x``; returns (centroids [k, D] f32,
-    assignments [N] int64), both there.
+def make_sharded_kmeans_step(mesh: Mesh, k: int):
+    """Data-parallel Lloyd step: ``step(x, centroids)`` with ``x`` a
+    :class:`ShardedRows` on ``mesh`` and ``centroids`` replicated returns (new
+    centroids on the mesh's first device, [rows] int64 assignments of
+    ``centroids`` in global row order). Each shard assigns its rows and sums
+    them; the sums and counts are added on the first device (and across
+    processes), as ``psum`` adds them in the JAX package."""
+    first = mesh.first
 
-    Init: distinct rows of ``x`` (:func:`init_indices`)."""
+    def step(x: ShardedRows, centroids: torch.Tensor):
+        sums = torch.zeros((k, x.shape[1]), dtype=torch.float32, device=first)
+        counts = torch.zeros(k, dtype=torch.float32, device=first)
+        assigns = []
+        for shard in x.shards:
+            a = _assign(shard, centroids.to(shard.device))
+            s, c = _segment_sums(shard, a, k)
+            sums += s.to(first)
+            counts += c.to(first)
+            assigns.append(a.to(first))
+        sums, counts = multihost.all_sum(sums), multihost.all_sum(counts)
+        return (_update(sums, counts, centroids.to(first)),
+                multihost.all_gather(torch.cat(assigns), dim=0))
+
+    return step
+
+
+def kmeans_fit(x, k: int, iters: int = 10, seed: int = 0,
+               mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fit k centroids on the device of ``x`` (on ``mesh``'s first device
+    with a mesh); returns (centroids [k, D] f32, assignments [N] int64), both
+    there.
+
+    Init: distinct rows of ``x`` (:func:`init_indices`). With ``mesh`` the
+    rows are padded with copies of the first row to a multiple of the mesh
+    size, as in the JAX package, and the assignments are those of the last
+    step."""
     x = as_f32(x)
     n = x.shape[0]
     k = min(k, n)
     idx = torch.from_numpy(init_indices(n, k, seed)).to(x.device)
     centroids = x[idx]
+    if mesh is not None:
+        pad = (-n) % mesh.size
+        xs = ShardedRows(mesh, (n + pad) // mesh.size, (x.shape[1],), torch.float32)
+        xs.narrow(0, 0, n).copy_(x)
+        xs.narrow(0, n, pad).copy_(x[:1].expand(pad, -1))
+        step = make_sharded_kmeans_step(mesh, k)
+        centroids = centroids.to(mesh.first)
+        assign = None
+        for _ in range(iters):
+            centroids, assign = step(xs, centroids)
+        if assign is None:  # iters == 0
+            assign = _assign(x.to(mesh.first), centroids)
+        return centroids, assign[:n]
     for _ in range(iters):
         centroids, _ = kmeans_step(x, centroids, k)
     return centroids, _assign(x, centroids)

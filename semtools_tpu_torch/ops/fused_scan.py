@@ -259,11 +259,16 @@ def merge_candidates(vals: torch.Tensor, idx: torch.Tensor, k: int):
     return best, idx.gather(1, pos)
 
 
-def _two_phase_topk(q, e, n_true: int, k: int):
-    """Exact top-k (distances asc) via sub-tile-max sweep, selection and
-    rescan."""
+def two_phase_sims(q, e, n_true: int, k: int):
+    """Exact top-k ([Q, k] sims desc, [Q, k] rows) via sub-tile-max sweep,
+    selection and rescan."""
     sub_max = tilemax(q, e, n_true)
-    best, ids = rescan_topk(q, e, n_true, top_subtiles(sub_max, min(k, sub_max.shape[1])), k)
+    return rescan_topk(q, e, n_true, top_subtiles(sub_max, min(k, sub_max.shape[1])), k)
+
+
+def _two_phase_topk(q, e, n_true: int, k: int):
+    """Exact top-k (distances asc) via :func:`two_phase_sims`."""
+    best, ids = two_phase_sims(q, e, n_true, k)
     return 1.0 - best, ids
 
 

@@ -284,6 +284,17 @@ def extract_above(sims, block_max, cutoff, *, n_b: int, cap: int) -> torch.Tenso
     return F.pad(ids, (0, cap - k_in), value=n_pad)
 
 
+def cutoff_margin(q8, margin_sigmas: Optional[float] = None) -> np.float32:
+    """The noise margin below the ``k_cut``-th best: ``margin_sigmas`` (default
+    :func:`int4_margin_sigmas`) sigmas of the largest query int norm (float64,
+    then f32)."""
+    if margin_sigmas is None:
+        margin_sigmas = int4_margin_sigmas()
+    sigma = float(np.max(np.linalg.norm(q8.cpu().numpy().astype(np.float64), axis=1))) \
+        / np.sqrt(12.0)
+    return np.float32(margin_sigmas * sigma)
+
+
 def select_candidates(q8, sims, block_max, n_rows: int, *,
                       margin_sigmas: Optional[float] = None, k_cut: int = 10) -> torch.Tensor:
     """The extraction half of :func:`int4_deep_candidates`, on a sweep's
@@ -293,11 +304,7 @@ def select_candidates(q8, sims, block_max, n_rows: int, *,
     One margin for the batch, from the largest query int norm (float64, then
     f32); ``cap`` and ``n_b`` from the whole batch's counts, rounded up to
     powers of two, as in the JAX package."""
-    if margin_sigmas is None:
-        margin_sigmas = int4_margin_sigmas()
-    sigma = float(np.max(np.linalg.norm(q8.cpu().numpy().astype(np.float64), axis=1))) \
-        / np.sqrt(12.0)
-    margin = torch.tensor(np.float32(margin_sigmas * sigma), device=sims.device)
+    margin = torch.tensor(cutoff_margin(q8, margin_sigmas), device=sims.device)
     cutoff, count, n_blocks = cutoff_counts(sims, block_max, margin, k_cut)
     max_count, max_nb = int(count.max()), int(n_blocks.max())
     cap = min(1 << max((max_count - 1).bit_length(), 4), int4_candidate_cap(n_rows))

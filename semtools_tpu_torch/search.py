@@ -14,7 +14,9 @@ reference's ``src/search/mod.rs``:
   the original text.
 
 The corpus of one search is one [N, D] tensor on the model's device
-(:func:`semtools_tpu_torch.ops.scan.topk_scan` scores it).
+(:func:`semtools_tpu_torch.ops.scan.topk_scan` scores it; where the store's
+sharding policy shards a corpus of this size on the device's mesh, the
+sharded scans of :mod:`semtools_tpu_torch.parallel.scan` do).
 """
 
 from __future__ import annotations
@@ -141,14 +143,22 @@ def search_documents_batched(
         return [[] for _ in range(qn)]
 
     with stage("scan"):
-        if config.max_distance is not None:
-            per = [
-                (d.tolist(), i.tolist())
-                for d, i in batched_threshold_scan(qs, corpus, float(config.max_distance))
-            ]
+        from semtools_tpu_torch.parallel.mesh import mesh_size
+        from semtools_tpu_torch.store.store import _sharded_enabled
+
+        if _sharded_enabled(int(corpus.shape[0]), mesh_size(corpus.device)):
+            from semtools_tpu_torch.parallel import scan as sharded
+
+            if config.max_distance is not None:
+                per = sharded.sharded_batched_threshold_scan(
+                    qs, corpus, float(config.max_distance))
+            else:
+                per = zip(*sharded.sharded_topk_scan(qs, corpus, config.top_k))
+        elif config.max_distance is not None:
+            per = batched_threshold_scan(qs, corpus, float(config.max_distance))
         else:
-            d, i = topk_scan(qs, corpus, config.top_k)
-            per = list(zip(d.tolist(), i.tolist()))
+            per = zip(*topk_scan(qs, corpus, config.top_k))
+        per = [(d.tolist(), i.tolist()) for d, i in per]
 
     out: List[List[SearchResult]] = []
     for dists, idxs in per:

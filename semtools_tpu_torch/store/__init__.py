@@ -8,7 +8,6 @@ from semtools_tpu_torch.store.store import (
     DocumentInfo,
     DocumentState,
     LineEmbedding,
-    NotPortedError,
     RankedLine,
     Store,
     WorkspaceStats,
@@ -20,7 +19,6 @@ __all__ = [
     "Workspace",
     "WorkspaceConfig",
     "Store",
-    "NotPortedError",
     "DocMeta",
     "DocumentInfo",
     "DocumentState",

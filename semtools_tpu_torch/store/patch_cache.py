@@ -15,7 +15,11 @@ row's ceil-quantized residual norm, see ``ops/reduce.py``) and "int4" (one
 global scale, split-half packed ``[capacity, D/2]``). Zero rows of the int4
 corpus, freed slots included, hold ``PACKED_ZERO_BYTE`` (0x08), the packing of
 the zero vector. The corpus has no tile padding: the kernels read only
-``n_true = capacity`` rows.
+``n_true = capacity`` rows. With a mesh (mesh-sharded serving) the corpus is
+a :class:`~semtools_tpu_torch.parallel.mesh.ShardedRows` of
+``bucket_rows(capacity)`` rows, the rows past the capacity holding the zero
+encoding; builds and patches write through its row ranges, so the code below
+serves both.
 
 :func:`get` returns, in this order of preference, the cached corpus at the
 store's current generation; the cached corpus patched to it (:func:`_patch`:
@@ -50,6 +54,7 @@ import numpy as np
 import torch
 
 from semtools_tpu_torch.ops.int4_scan import PACKED_ZERO_BYTE, pack_int4
+from semtools_tpu_torch.parallel.mesh import Mesh, ShardedRows, bucket_rows
 from semtools_tpu_torch.store import device_cache
 from semtools_tpu_torch.utils.tracing import stage
 
@@ -75,8 +80,9 @@ def uploaded_bytes() -> int:
 class SlotCorpus:
     kind: str  # "f32" | "int8" | "int4" (int8 with ``rotation``: the reduced kind)
     generation: int
-    capacity: int  # slot count = rows of ``corpus`` = the scans' n_true
-    corpus: torch.Tensor  # [cap, D] f32/int8, [cap, rd + 1] reduced, [cap, D/2] int4
+    capacity: int  # slot count = the scans' n_true (= rows of an unsharded ``corpus``)
+    # [cap, D] f32/int8, [cap, rd + 1] reduced, [cap, D/2] int4 (ShardedRows with a mesh)
+    corpus: object
     scale: Optional[float]
     layout: Dict[str, Tuple[int, int, int]]  # path -> (slot_start, n, vec_rev)
     rotation: Optional[np.ndarray] = None  # [D, rd] f32, reduced kind only
@@ -100,13 +106,17 @@ class SlotCorpus:
     # Rows written by patches since scale and rotation were fitted; a lossy
     # entry refuses patches once this passes a quarter of the corpus.
     patched_rows: int = 0
+    mesh: Optional[Mesh] = None  # set when the corpus is row-sharded
     starts: np.ndarray = field(default=None)  # slot-ordered range starts
     ends: np.ndarray = field(default=None)
     paths: List[str] = field(default=None)
 
     @property
     def device_nbytes(self) -> int:
-        return int(self.corpus.numel()) * int(self.corpus.element_size())
+        """Bytes on each mesh device (a sharded corpus holds 1/size of its
+        rows on each; the budget approves corpora up to budget x size)."""
+        total = int(self.corpus.numel()) * int(self.corpus.element_size())
+        return total // (self.mesh.size if self.mesh is not None else 1)
 
     def refresh_lookup(self) -> None:
         items = sorted(self.layout.items(), key=lambda kv: kv[1][0])
@@ -125,6 +135,24 @@ class SlotCorpus:
 def _fill_byte(kind: str) -> int:
     """Freed-slot fill: the encoding of the zero VECTOR for this kind."""
     return PACKED_ZERO_BYTE if kind == "int4" else 0
+
+
+def _padded_rows(cap: int, mesh: Optional[Mesh]) -> int:
+    """Device rows for a capacity: the capacity itself on one device; with a
+    mesh a bucketed multiple of its size (``bucket_rows``), so capacity
+    growth keeps the padded shape across many mutations."""
+    return cap if mesh is None else bucket_rows(cap, mesh.size)
+
+
+def _alloc(cap: int, width: int, dtype: torch.dtype, device: torch.device,
+           mesh: Optional[Mesh], fill: int):
+    """An uninitialized corpus of ``cap`` slots: a tensor on ``device``, or
+    with a mesh the shards of ``_padded_rows`` rows, padding set to ``fill``."""
+    if mesh is None:
+        return torch.empty((cap, width), dtype=dtype, device=device)
+    rows = ShardedRows(mesh, _padded_rows(cap, mesh) // mesh.size, (width,), dtype)
+    rows.narrow(0, cap, rows.shape[0] - cap).fill_(fill)
+    return rows
 
 
 def _resid_bytes(r: np.ndarray, resid_scale) -> np.ndarray:
@@ -227,7 +255,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _device_build_corpus(mm, ranges, cap: int, kind: str, rotation, device):
+def _device_build_corpus(mm, ranges, cap: int, kind: str, rotation, device, mesh=None):
     """The transform on ``device``: f32 slot chunks streamed up twice (pass 1
     takes the global amax, of the projection for the reduced kind, and the
     largest residual norm; pass 2 quantizes, packs or projects and appends
@@ -266,10 +294,10 @@ def _device_build_corpus(mm, ranges, cap: int, kind: str, rotation, device):
 
     d = mm.shape[1]
     out_dim = d // 2 if kind == "int4" else (w.shape[1] + 1 if w is not None else d)
+    corpus = _alloc(cap, out_dim, torch.int8, device, mesh, _fill_byte(kind))
     if scale == 0.0:
-        return (torch.full((cap, out_dim), _fill_byte(kind), dtype=torch.int8, device=device),
-                0.0, resid_scale, 0.0)
-    corpus = torch.empty((cap, out_dim), dtype=torch.int8, device=device)
+        corpus.narrow(0, 0, cap).fill_(_fill_byte(kind))
+        return corpus, 0.0, resid_scale, 0.0
     scale_t = torch.tensor(scale, dtype=torch.float32, device=device)
     rscale_t = torch.tensor(resid_scale or 1.0, dtype=torch.float32, device=device)
     lim = 127 if kind == "int8" else 7
@@ -289,12 +317,12 @@ def _device_build_corpus(mm, ranges, cap: int, kind: str, rotation, device):
             rows = torch.cat([rows, resid[:, None]], dim=1)
         if kind == "int8":
             l1 = torch.maximum(l1, rows.to(torch.int32).abs().sum(1).max())
-        corpus[c0 : c0 + rows.shape[0]] = rows
+        corpus.narrow(0, c0, rows.shape[0]).copy_(rows)
     return corpus, scale, resid_scale, float(l1)
 
 
 def _build(store, kind: str, device: torch.device, reduced_dim: Optional[int] = None,
-           gen: int = 0) -> Optional[SlotCorpus]:
+           gen: int = 0, mesh: Optional[Mesh] = None) -> Optional[SlotCorpus]:
     """A fresh slot corpus. ``gen`` was read BEFORE the layout and the mmap:
     a writer landing in between leaves the entry stamped with the older
     generation, so the next query patches it; stale data is never marked
@@ -317,7 +345,7 @@ def _build(store, kind: str, device: torch.device, reduced_dim: Optional[int] = 
     max_l1 = 0.0
     if _use_device_build(kind, device):
         corpus, scale, resid_scale, max_l1 = _device_build_corpus(
-            mm, ranges, cap, kind, rotation, device)
+            mm, ranges, cap, kind, rotation, device, mesh)
     else:
         if kind in ("int8", "int4"):
             # Global amax over occupied rows (projected for the reduced kind);
@@ -340,12 +368,12 @@ def _build(store, kind: str, device: torch.device, reduced_dim: Optional[int] = 
         width = store.dim // 2 if kind == "int4" else (
             reduced_dim + 1 if rotation is not None else store.dim)
         dtype = torch.float32 if kind == "f32" else torch.int8
-        corpus = torch.empty((cap, width), dtype=dtype, device=device)
+        corpus = _alloc(cap, width, dtype, device, mesh, _fill_byte(kind))
         for c0, block in _occupied_slot_chunks(mm, ranges, _BUILD_CHUNK_ROWS):
             q = _transform(block, kind, rotation, scale, resid_scale)
             if kind == "int8" and q.size:
                 max_l1 = max(max_l1, float(np.abs(q.astype(np.int32)).sum(axis=1).max()))
-            corpus[c0 : c0 + q.shape[0]].copy_(torch.from_numpy(q))
+            corpus.narrow(0, c0, q.shape[0]).copy_(torch.from_numpy(q))
             _uploaded[0] += q.nbytes
     del mm
 
@@ -371,6 +399,7 @@ def _build(store, kind: str, device: torch.device, reduced_dim: Optional[int] = 
         hashes=hashes,
         model=_store_model(store),
         doc_versions=_doc_versions(store),
+        mesh=mesh,
     )
     sc.refresh_lookup()
     return sc
@@ -400,13 +429,13 @@ def _move_runs(src: np.ndarray, dst: np.ndarray):
     return [(int(src[a]), int(dst[a]), int(b - a)) for a, b in zip(starts, ends)]
 
 
-def _write_rows(arr: torch.Tensor, rows_np: np.ndarray, start: int) -> None:
+def _write_rows(arr, rows_np: np.ndarray, start: int) -> None:
     """Upload rows and write them at [start, start + n)."""
     _uploaded[0] += rows_np.nbytes
-    arr[start : start + rows_np.shape[0]].copy_(torch.from_numpy(rows_np))
+    arr.narrow(0, start, rows_np.shape[0]).copy_(torch.from_numpy(rows_np))
 
 
-def _scatter_upload(arr: torch.Tensor, rows_np: np.ndarray, dst: np.ndarray) -> None:
+def _scatter_upload(arr, rows_np: np.ndarray, dst: np.ndarray) -> None:
     """Upload rows and write them at arbitrary slots (index bytes counted)."""
     idx = torch.from_numpy(np.ascontiguousarray(dst, np.int64)).to(arr.device)
     _uploaded[0] += rows_np.nbytes + idx.numel() * idx.element_size()
@@ -428,8 +457,11 @@ def _patch(store, sc: SlotCorpus, gen: int) -> Optional[SlotCorpus]:
     novel rows are transformed on the host and uploaded.
     """
     # A zero quantization scale (an all-zero corpus at build time) cannot
-    # encode real rows.
+    # encode real rows. A process of a multi-process mesh holds only its own
+    # shards, so it cannot move rows between shards: it rebuilds.
     if sc.kind in ("int8", "int4") and not sc.scale:
+        return None
+    if sc.mesh is not None and sc.mesh.world > 1:
         return None
     # A model swap re-embeds unchanged lines into different vectors with the
     # same content hashes: nothing resident can be trusted.
@@ -515,14 +547,15 @@ def _patch(store, sc: SlotCorpus, gen: int) -> Optional[SlotCorpus]:
     cap = store._capacity()
     old = sc.corpus
     fill = _fill_byte(sc.kind)
-    arr = torch.empty((cap, old.shape[1]), dtype=old.dtype, device=old.device)
-    keep = min(cap, old.shape[0])
-    arr[:keep].copy_(old[:keep])
-    arr[keep:].fill_(fill)
+    arr = _alloc(cap, old.shape[1], old.dtype, old.device, sc.mesh, fill)
+    keep = min(cap, sc.capacity)
+    arr.narrow(0, 0, keep).copy_(old.narrow(0, 0, keep))
+    arr.narrow(0, keep, cap - keep).fill_(fill)
     # Freed ranges first: the allocator may have handed part of one to a
     # changed document, whose rows below must win.
     for s, n in removed:
-        arr[s : min(s + n, cap)].fill_(fill)
+        if s < cap:
+            arr.narrow(0, s, min(s + n, cap) - s).fill_(fill)
     # Moves read the old tensor, which nothing writes.
     for _, _, src, dst, _, _ in plans:
         if src is None or not len(src):
@@ -530,7 +563,7 @@ def _patch(store, sc: SlotCorpus, gen: int) -> Optional[SlotCorpus]:
         runs = _move_runs(src, dst)
         if len(src) >= 64 * len(runs):
             for s0, d0, length in runs:
-                arr[d0 : d0 + length].copy_(old[s0 : s0 + length])
+                arr.narrow(0, d0, length).copy_(old.narrow(0, s0, length))
         else:
             src_t = torch.from_numpy(src).to(old.device)
             dst_t = torch.from_numpy(dst).to(old.device)
@@ -563,14 +596,19 @@ def _patch(store, sc: SlotCorpus, gen: int) -> Optional[SlotCorpus]:
     return fresh
 
 
-def _key(store, kind: str, device: torch.device, reduced_dim: Optional[int]) -> tuple:
-    return (str(store.dir), "slot", kind, reduced_dim or 0, str(device))
+def _key(store, kind: str, device: torch.device, reduced_dim: Optional[int],
+         mesh: Optional[Mesh]) -> tuple:
+    return (str(store.dir), "slot", kind, reduced_dim or 0, str(device),
+            mesh.size if mesh is not None else 0)
 
 
-def is_warm(store, kind: str, device: torch.device, reduced_dim: Optional[int] = None) -> bool:
-    """True when a corpus of this kind for ``store`` is resident (any
-    generation: a stale one is one patch away). Never builds."""
-    return isinstance(device_cache.peek(_key(store, kind, device, reduced_dim)), SlotCorpus)
+def is_warm(store, kind: str, device: torch.device, reduced_dim: Optional[int] = None,
+            mesh: Optional[Mesh] = None) -> bool:
+    """True when a corpus of this kind for ``store`` (sharded over ``mesh``
+    when given) is resident (any generation: a stale one is one patch
+    away). Never builds."""
+    return isinstance(device_cache.peek(_key(store, kind, device, reduced_dim, mesh)),
+                      SlotCorpus)
 
 
 # get() builds and patches under one lock per cache key: two daemon threads
@@ -588,12 +626,13 @@ def _key_lock(key: tuple) -> threading.Lock:
         return lk
 
 
-def get(store, kind: str, device: torch.device,
-        reduced_dim: Optional[int] = None) -> Optional[SlotCorpus]:
-    """The slot corpus of ``store`` at its current generation: a cache hit,
-    else the cached entry patched (the ``slot_corpus_patch`` stage), else a
-    full build (``slot_corpus_build``)."""
-    key = _key(store, kind, device, reduced_dim)
+def get(store, kind: str, device: torch.device, reduced_dim: Optional[int] = None,
+        mesh: Optional[Mesh] = None) -> Optional[SlotCorpus]:
+    """The slot corpus of ``store`` at its current generation (row-sharded
+    over ``mesh`` when given): a cache hit, else the cached entry patched
+    (the ``slot_corpus_patch`` stage), else a full build
+    (``slot_corpus_build``)."""
+    key = _key(store, kind, device, reduced_dim, mesh)
     with _key_lock(key):
         gen = store.generation()
         cached = device_cache.peek(key)
@@ -610,7 +649,7 @@ def get(store, kind: str, device: torch.device,
                 return patched
         device_cache.remove(key)  # free the stale corpus before building
         with stage("slot_corpus_build"):
-            fresh = _build(store, kind, device, reduced_dim, gen)
+            fresh = _build(store, kind, device, reduced_dim, gen, mesh)
         if fresh is not None:
             device_cache.replace(key, fresh)
         return fresh

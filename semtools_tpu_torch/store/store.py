@@ -38,8 +38,11 @@ builds it on the CPU).
 Other path subsets gather their rows and scan them on the device (the
 compact path). ``SEMTOOLS_TPU_SCAN=host`` scores on the host from the mmap;
 ``auto`` means the device (the JAX package's link-probe placement is not
-ported). Sharded serving is not ported: asking for it raises
-:class:`NotPortedError` rather than serve another tier in its place.
+ported). On a mesh of two shards or more (every card, or
+``SEMTOOLS_TORCH_VIRTUAL_DEVICES`` shards of one device: ``parallel/mesh.py``)
+the JAX package's sharding policy (:func:`_sharded_enabled`) serves the
+whole store and path subsets from a row-sharded slot corpus through the
+sharded scans of ``parallel/scan.py``.
 :meth:`Store.compact` rewrites the slot space densely into the next epoch of
 the vector file, byte for byte as the JAX package does, and remaps a fresh
 IVF-PQ index in place.
@@ -71,14 +74,6 @@ _HASH_FILE = "lines.h64"
 _DB_FILE = "store.sqlite"
 _ANN_FILE = "ann.npz"
 _ANN_META_FILE = "ann_meta.npz"
-
-
-class NotPortedError(RuntimeError):
-    """A serving tier or operation the JAX package has and the port does
-    not have yet; raised rather than serving another tier in its place."""
-
-    def __init__(self, what: str):
-        super().__init__(f"{what} is not ported yet (see ROADMAP.md)")
 
 
 def _int8_tier_enabled(n_rows: int) -> bool:
@@ -118,14 +113,25 @@ def _int4_tier_enabled(n_rows: int) -> bool:
     return min_rows > 0 and n_rows >= min_rows
 
 
-def _sharded_enabled(n_rows: int) -> bool:
-    """Mesh-sharded serving: the port serves from one device, so never;
-    ``SEMTOOLS_TPU_SHARDED=1`` asks for the sharded tier, which is not
-    ported yet."""
-    del n_rows
-    if os.environ.get("SEMTOOLS_TPU_SHARDED") in ("1", "on"):
-        raise NotPortedError("sharded serving (SEMTOOLS_TPU_SHARDED=1)")
-    return False
+def _sharded_enabled(n_rows: int, n_devices: int) -> bool:
+    """Mesh-sharded serving policy on a mesh of ``n_devices`` shards (the
+    JAX package's, so both packages name the same tier): never below two
+    shards; SEMTOOLS_TPU_SHARDED=0 never, =1 at any size; else from
+    ``SEMTOOLS_TPU_SHARDED_MIN_ROWS`` (8,192) rows. Tiny corpora stay on one
+    device: the merge adds fixed latency a one-tile scan does not earn back.
+    """
+    v = os.environ.get("SEMTOOLS_TPU_SHARDED")
+    if v in ("0", "off"):
+        return False
+    if n_devices < 2:
+        return False
+    if v in ("1", "on"):
+        return True
+    return n_rows >= _sharded_min_rows()
+
+
+def _sharded_min_rows() -> int:
+    return _env_int("SEMTOOLS_TPU_SHARDED_MIN_ROWS", 8_192)
 
 
 def _ann_min_rows() -> int:
@@ -717,13 +723,36 @@ class Store:
             total_lines=self.count_line_embeddings(),
         )
 
+    def _mesh_size(self) -> int:
+        """Shards of the serving device's mesh (``parallel.mesh.mesh_size``;
+        the device is not resolved, so a tier report creates no CUDA
+        context)."""
+        from semtools_tpu_torch.parallel.mesh import mesh_size
+
+        return mesh_size(self._device if self._device is not None else self._device_name)
+
+    def _sharded(self, n_rows: int) -> bool:
+        return _sharded_enabled(n_rows, self._mesh_size())
+
+    def _serving_mesh(self, n_rows: int):
+        """The mesh a store of ``n_rows`` live rows serves on, or None (one
+        device)."""
+        if not self._sharded(n_rows):
+            return None
+        from semtools_tpu_torch.parallel.mesh import corpus_mesh
+
+        return corpus_mesh(device=self.device)
+
     def _device_budget_bytes(self, n_rows: int) -> int:
-        """The device cache's byte budget (one device: the JAX package's
-        budget times its mesh size is this budget)."""
+        """The device cache's byte budget, times the mesh size when the store
+        shards (the JAX package's rule: each shard holds 1/size of the
+        rows)."""
         from semtools_tpu_torch.store import device_cache
 
-        del n_rows
-        return device_cache._max_bytes()
+        budget = device_cache._max_bytes()
+        if self._sharded(n_rows):
+            budget *= self._mesh_size()
+        return budget
 
     def _slot_rows(self, n_rows: int) -> int:
         """Rows the slot-space device corpus actually allocates: the mmap
@@ -837,14 +866,6 @@ class Store:
             return "int8", None
         return "f32", None
 
-    def _served_kind(self, n_rows: int) -> Tuple[str, Optional[int]]:
-        """(kind, reduced_dim) of the whole-store device tier the policy
-        picks (:meth:`_device_kind`), also on the IVF-PQ tier when no index
-        is current, as the JAX package serves it; raises
-        :class:`NotPortedError` for sharded serving."""
-        _sharded_enabled(n_rows)
-        return self._device_kind(n_rows)
-
     def serving_tier(self, n_rows: Optional[int] = None) -> str:
         """Name of the tier a whole-store query would use right now
         (``workspace status`` reports this); the JAX package's names."""
@@ -854,10 +875,14 @@ class Store:
             return "host-mmap-scan"
         if self._use_ann_tier(n_rows) and self._ann_available():
             return "ivf-pq"
-        kind, rd = self._served_kind(n_rows)
+        kind, rd = self._device_kind(n_rows)
+        suffix = f"-reduced{rd}d" if rd else ""
+        if self._sharded(n_rows):
+            name = kind if kind in ("int8", "int4") else "exact"
+            return f"sharded-{name}-scan[{self._mesh_size()}]{suffix}"
         if kind == "f32":
             return "exact-mxu-scan"
-        return f"{kind}-mxu-scan" + (f"-reduced{rd}d" if rd else "")
+        return f"{kind}-mxu-scan{suffix}"
 
     # -- ANN tier (IVF-PQ) -------------------------------------------------
     #
@@ -1630,7 +1655,8 @@ class Store:
                 return self._search_ann_batched(state, qs, top_k, max_distance)
 
         if full_store:
-            hits = self._search_slot_cached_batched(qs, top_k, max_distance, n_rows)
+            hits = self._search_slot_cached_batched(
+                qs, top_k, max_distance, n_rows, self._serving_mesh(n_rows))
             if hits is not None:
                 return hits
         else:
@@ -1800,35 +1826,41 @@ class Store:
             # ANN-scale store: no device tier fits the budget, so there
             # is no whole-store corpus to mask — the compact path serves.
             return None
-        _sharded_enabled(total_rows)
+        mesh = self._serving_mesh(total_rows)
         kind, rd = self._device_kind(total_rows)
-        if mode not in ("1", "on") and not patch_cache.is_warm(self, kind, self.device, rd):
+        if mode not in ("1", "on") and not patch_cache.is_warm(self, kind, self.device, rd, mesh):
             subset_rows = sum(n for _, _, n in subset_ranges)
             build_bytes = self._slot_rows(total_rows) * self._tier_bytes_per_row(kind, rd)
             if subset_rows * 4 * self.dim < build_bytes:
                 return None
         return self._search_slot_cached_batched(
-            qs, top_k, max_distance, total_rows, subset_ranges=subset_ranges,
+            qs, top_k, max_distance, total_rows, mesh, subset_ranges=subset_ranges,
         )
 
-    def _subset_mask(self, sc, subset_ranges) -> torch.Tensor:
-        """[capacity] uint8 keep mask on the device (1 = slot in the
-        subset), cached per (store, generation, subset digest, device) —
-        a repeated subset query re-uploads nothing."""
+    def _subset_mask(self, sc, subset_ranges):
+        """uint8 keep mask over the corpus rows (1 = slot in the subset),
+        sharded like a sharded corpus, cached per (store, generation, subset
+        digest, device, mesh, rows) — a repeated subset query re-uploads
+        nothing."""
         import hashlib
 
+        from semtools_tpu_torch.parallel.mesh import shard_rows
         from semtools_tpu_torch.store import device_cache, patch_cache
 
         digest = hashlib.sha1(
             "\0".join(sorted(p for p, _, _ in subset_ranges)).encode()
         ).hexdigest()
-        key = (str(self.dir), "mask", sc.generation, digest, str(self.device), sc.capacity)
+        n_dev = sc.mesh.size if sc.mesh is not None else 0
+        key = (str(self.dir), "mask", sc.generation, digest, str(self.device), n_dev,
+               sc.corpus.shape[0])
 
         def build():
             m = np.zeros(sc.capacity, np.uint8)
             for _, s, n in subset_ranges:
                 m[s : s + n] = 1
             patch_cache._uploaded[0] += m.nbytes
+            if sc.mesh is not None:
+                return shard_rows(m, sc.mesh)
             return torch.from_numpy(m).to(self.device)
 
         return device_cache.get_or_put(key, build)
@@ -1856,21 +1888,23 @@ class Store:
 
     def _search_slot_cached_batched(
         self, query_vecs: np.ndarray, top_k: int,
-        max_distance: Optional[float], n_rows: int, subset_ranges=None,
+        max_distance: Optional[float], n_rows: int, mesh=None, subset_ranges=None,
     ) -> Optional[List[List[RankedLine]]]:
         """Q query rows through the slot corpus of the tier the policy
-        picks. Returns None (the caller takes the exact compact path, for
-        every query) when any query's zero-slot slack is exhausted.
+        picks (row-sharded over ``mesh`` when given). Returns None (the
+        caller takes the exact compact path, for every query) when any
+        query's zero-slot slack is exhausted.
 
         ``n_rows`` is always the WHOLE store's live row count (it picks
         the tier the cached corpus was built as). With ``subset_ranges``
         the scan applies the subset's slot keep mask."""
         from semtools_tpu_torch.ops.int4_scan import int4_deep_candidates
         from semtools_tpu_torch.ops.int8_scan import int8_topk_scan, quantize_global
+        from semtools_tpu_torch.parallel import scan as sharded
         from semtools_tpu_torch.store import patch_cache
 
-        kind, reduced_dim = self._served_kind(n_rows)
-        sc = patch_cache.get(self, kind, self.device, reduced_dim)
+        kind, reduced_dim = self._device_kind(n_rows)
+        sc = patch_cache.get(self, kind, self.device, reduced_dim, mesh)
         if sc is None:
             return None
         qs = np.asarray(query_vecs, np.float32)
@@ -1896,15 +1930,23 @@ class Store:
             ]
 
         def _topk(k_scan, q_scan=q_dev):
-            d, i = topk_scan(q_scan, sc.corpus, k_scan, n_true=sc.capacity, mask=mask)
+            if mesh is not None:
+                d, i = sharded.sharded_topk_scan_device(
+                    q_scan, sc.corpus, sc.capacity, k_scan, mesh, mask=mask)
+            else:
+                d, i = topk_scan(q_scan, sc.corpus, k_scan, n_true=sc.capacity, mask=mask)
             return d.cpu().numpy(), i.cpu().numpy()
 
         if kind == "f32":
             if max_distance is not None:
-                per = batched_threshold_scan(
-                    q_dev, sc.corpus, float(max_distance), n_true=sc.capacity,
-                    mask=mask,
-                )
+                if mesh is not None:
+                    per = sharded.sharded_batched_threshold_scan_device(
+                        q_dev, sc.corpus, sc.capacity, float(max_distance), mesh, mask=mask)
+                else:
+                    per = batched_threshold_scan(
+                        q_dev, sc.corpus, float(max_distance), n_true=sc.capacity,
+                        mask=mask,
+                    )
                 return [
                     _ranked_rows(idxs.cpu().numpy(), dists.cpu().numpy())[:top_k]
                     for dists, idxs in per
@@ -1927,9 +1969,13 @@ class Store:
             # slots (0x08 rows) score true sim 0 and enter the pool only below
             # the margin; the re-rank drops unowned slots and falls back to the
             # exact path if fewer than `need` real rows remain.
-            ids = int4_deep_candidates(
-                q_dev, sc.corpus, n_true=sc.capacity, mask=mask, k_cut=max(need, 10),
-            )
+            if mesh is not None:
+                ids = sharded.sharded_int4_deep_candidates_device(
+                    q_dev, sc.corpus, sc.capacity, mesh, mask=mask, k_cut=max(need, 10))
+            else:
+                ids = int4_deep_candidates(
+                    q_dev, sc.corpus, n_true=sc.capacity, mask=mask, k_cut=max(need, 10),
+                )
             return self._rerank_candidates(
                 ids.cpu().numpy(), qs, owners, paths, need, top_k, max_distance,
             )
@@ -1955,10 +2001,12 @@ class Store:
 
         def _fused(k_now: int) -> bool:
             # The int8 kernels take CLI-scale batches (the JAX package's
-            # routing limits); larger ones, and the reduced corpus, score the
-            # unscaled int corpus through the plain scan (int8 rows widened,
-            # ranking unchanged).
-            return not reduced_dim and k_now <= 64 and qn <= 32
+            # routing limits); larger ones, the reduced corpus and a masked
+            # query on a mesh (the sharded int8 scan takes no mask, as in the
+            # JAX package) score the unscaled int corpus through the plain
+            # scan (int8 rows widened, ranking unchanged).
+            return (not reduced_dim and k_now <= 64 and qn <= 32
+                    and (mask is None or mesh is None))
 
         def _candidates(k_sel: int):
             """([Q, k_sel] candidate slots, [Q, k_sel] TRUE-SCALE quantized
@@ -1968,9 +2016,13 @@ class Store:
                 d, i = _topk(k_sel, q_aug)
                 dq = 1.0 - (1.0 - d) * (sc.scale or 0.0)
             elif _fused(k_sel):
-                d, i = int8_topk_scan(
-                    q_dev, sc.corpus, sc.scale, k_sel, n_true=sc.capacity, mask=mask,
-                )
+                if mesh is not None:
+                    d, i = sharded.sharded_int8_topk_scan_device(
+                        q_dev, sc.corpus, sc.scale, k_sel, sc.capacity, mesh)
+                else:
+                    d, i = int8_topk_scan(
+                        q_dev, sc.corpus, sc.scale, k_sel, n_true=sc.capacity, mask=mask,
+                    )
                 dq = d.cpu().numpy()  # already true-scale
                 i = i.cpu().numpy()
             else:

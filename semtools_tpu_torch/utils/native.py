@@ -16,6 +16,10 @@ loader runs one quiet ``make`` (disable with
 ``SEMTOOLS_TPU_NO_NATIVE_BUILD=1``); when that fails the tokenizer, the
 probe and grep take their pure-Python implementations, whose answers are
 the same. This is host code: no device work depends on it.
+
+:func:`build_client` compiles the port's native daemon client
+(``semtools_tpu_torch/native/semtools_client.cpp``) into
+``_build/semtools-client`` with ``g++`` from PATH, stamped as the library is.
 """
 
 from __future__ import annotations
@@ -83,6 +87,42 @@ def build() -> bool:
     except OSError:
         pass
     return True
+
+
+CLIENT_SOURCE = _PKG_DIR / "native" / "semtools_client.cpp"
+CLIENT_RECIPE = "g++ -O2 -std=c++17, inherited CXX dropped\n"
+
+
+def client_path() -> Path:
+    return BUILD_DIR / "semtools-client"
+
+
+def _client_current() -> bool:
+    try:
+        return ((BUILD_DIR / "semtools-client.recipe").read_text() == CLIENT_RECIPE
+                and client_path().stat().st_mtime >= CLIENT_SOURCE.stat().st_mtime)
+    except OSError:
+        return False
+
+
+def build_client() -> Path:
+    """The native daemon client, compiled into ``_build/semtools-client``
+    unless a build stamped with :data:`CLIENT_RECIPE` is newer than its
+    source. ``g++`` from PATH compiles it, never an inherited ``CXX`` (see
+    :func:`build`). Raises with the compiler's output when it fails."""
+    if _client_current():
+        return client_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = client_path().with_suffix(f".{os.getpid()}.tmp")
+    env = {k: v for k, v in os.environ.items() if k != "CXX"}
+    proc = subprocess.run(["g++", "-O2", "-std=c++17", "-Wall", "-Wextra", "-o", str(tmp),
+                           str(CLIENT_SOURCE)], capture_output=True, text=True, timeout=300,
+                          env=env)
+    if proc.returncode != 0:
+        raise RuntimeError(f"native client build failed:\n{proc.stderr}")
+    os.replace(tmp, client_path())
+    (BUILD_DIR / "semtools-client.recipe").write_text(CLIENT_RECIPE)
+    return client_path()
 
 
 def _stale(path: Path) -> bool:

@@ -3,7 +3,9 @@
 Counterpart of ``semtools_tpu/utils/platform.py``. The device is explicit:
 CUDA unless ``cpu`` is asked for (``--device cpu`` or
 ``SEMTOOLS_TORCH_DEVICE=cpu``). A missing GPU is an error, never a silent
-move to the CPU.
+move to the CPU. Resolving the device also joins a multi-process mesh when a
+coordinator is configured (:func:`semtools_tpu_torch.parallel.multihost.
+initialize`; a no-op otherwise), before anything builds a mesh.
 """
 
 from __future__ import annotations
@@ -31,4 +33,7 @@ def resolve_device(name: Optional[Union[str, torch.device]] = None) -> torch.dev
         )
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from semtools_tpu_torch.parallel import multihost
+
+    multihost.initialize(device=dev)
     return dev

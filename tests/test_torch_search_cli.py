@@ -23,6 +23,7 @@ import pytest
 
 from semtools_tpu import cli as jax_cli
 from semtools_tpu_torch import cli as torch_cli
+from semtools_tpu_torch.parallel import mesh as torch_mesh
 
 ATOL = 1e-5
 REPO = Path(__file__).resolve().parent.parent
@@ -172,16 +173,30 @@ def test_queries_file_matches_jax_cli(env, capsys, monkeypatch, flags, stdin_doc
 
 
 def test_unported_modes_exit_1(env, capsys, monkeypatch):
-    """Sharded serving is the one mode still not ported: it exits 1 with a
-    message rather than serve another tier. ``parse`` and ``ask`` run now
-    (a text file passes through ``parse``; ``ask`` without a key fails as
-    the JAX CLI does)."""
+    """Every mode runs now. Sharded serving, the last one ported: with
+    ``SEMTOOLS_TPU_SHARDED=1`` a workspace search on a one-device mesh serves
+    the single-device tier with the JAX CLI's output (the JAX side, which has
+    8 virtual devices here, pinned to one by ``SEMTOOLS_TPU_SHARDED=0``), and
+    on an 8-shard mesh the sharded tier, as the JAX CLI's 8 devices do
+    (``workspace status`` names the same tier). ``parse`` and ``ask`` run (a
+    text file passes through ``parse``; ``ask`` without a key fails as the
+    JAX CLI does)."""
     files, _ = env
     assert _run(torch_cli.main, ["workspace", "use", "sharded"], capsys, monkeypatch)[0] == 0
-    monkeypatch.setenv("SEMTOOLS_TPU_SHARDED", "1")
-    rc, out, err = _run(torch_cli.main, ["search", "q", *files, "-w", "sharded", "--device",
-                                         "cpu"], capsys, monkeypatch)
-    assert rc == 1 and out == "" and "not ported" in err and "SEMTOOLS_TPU_SHARDED" in err
+    monkeypatch.setenv("SEMTOOLS_TORCH_DEVICE", "cpu")
+    argv = ["search", "DATABASES pages disk", *files, "-w", "sharded", "--top-k", "4"]
+    status = ["workspace", "status", "sharded"]
+    for shards, tier in ((1, "exact-mxu-scan"), (8, "sharded-exact-scan[8]")):
+        monkeypatch.setattr(torch_mesh, "_VIRTUAL", shards)
+        monkeypatch.setenv("SEMTOOLS_TPU_SHARDED", "0" if shards == 1 else "1")
+        rc_j, out_j, _ = _run(jax_cli.main, argv, capsys, monkeypatch)
+        st_j = _run(jax_cli.main, status, capsys, monkeypatch)
+        monkeypatch.setenv("SEMTOOLS_TPU_SHARDED", "1")
+        rc_t, out_t, err_t = _run(torch_cli.main, argv, capsys, monkeypatch)
+        st_t = _run(torch_cli.main, status, capsys, monkeypatch)
+        assert rc_j == rc_t == 0 and "not ported" not in err_t
+        _assert_same(out_j, out_t, False)
+        assert st_t == st_j and f"Index: Yes ({tier})" in st_t[1]
     monkeypatch.delenv("SEMTOOLS_TPU_SHARDED")
     rc, out, err = _run(torch_cli.main, ["parse", *files], capsys, monkeypatch)
     assert rc == 0 and out.split() == files and "not ported" not in err
@@ -224,12 +239,14 @@ def test_device_is_explicit(monkeypatch):
 
 
 def test_port_search_never_imports_jax(env, tmp_path):
-    """A plain search, workspace searches (int8 and int4 tiers), a forced
+    """A plain search, workspace searches (int8 and int4 tiers, and the
+    sharded tier on a mesh of 4 CPU shards), a forced
     IVF-PQ build (``workspace index --force``) and a search it serves,
     ``parse -b local`` and ``parse`` against a fake LlamaParse, ``ask`` in
     chat, responses and stdin modes against a fake OpenAI (plain and ``-w``),
     a daemon serving (warm-up included) and a search and an ``ask`` forwarded
-    to it, in a child process that can see only the port
+    to it (and a search forwarded by the native client), in a child process
+    that can see only the port
     (``semtools_tpu_torch/`` and ``cpp/``, without the JAX package or its
     ``_native/`` build), import nothing of jax, of the JAX package or of
     ``httpx``; the grep tool runs the port's native scanner."""
@@ -286,6 +303,11 @@ def test_port_search_never_imports_jax(env, tmp_path):
         "assert rc == 0, rc\n"
         "assert main(['workspace', 'status', 'guard']) == 0\n"
         "os.environ.pop('SEMTOOLS_TPU_STORE_INT4')\n"
+        "os.environ['SEMTOOLS_TPU_SHARDED'] = '1'\n"
+        f"rc = main(['search', 'lazy dog', *{files!r}, '-w', 'guard', '--device', 'cpu'])\n"
+        "assert rc == 0, rc\n"
+        "assert main(['workspace', 'status', 'guard']) == 0\n"
+        "os.environ.pop('SEMTOOLS_TPU_SHARDED')\n"
         "os.environ.update(SEMTOOLS_TPU_FORCE_ANN='1', SEMTOOLS_TORCH_DEVICE='cpu')\n"
         "assert main(['workspace', 'index', 'guard', '--force']) == 0\n"
         f"rc = main(['search', 'lazy dog', *{files!r}, '-w', 'guard', '--device', 'cpu'])\n"
@@ -329,6 +351,10 @@ def test_port_search_never_imports_jax(env, tmp_path):
         f"    rc = daemon.forward([*ask, *{files!r}, '--api-mode', 'chat', '--base-url',\n"
         "                         urls['forwarded']], None)\n"
         "assert rc == 0 and buf.getvalue().endswith('forwarded answer\\n'), buf.getvalue()\n"
+        "import subprocess\n"
+        f"r = subprocess.run([str(native.build_client()), 'search', 'lazy dog', *{files!r}, '-j'],\n"
+        "                   input='', capture_output=True, text=True, timeout=120)\n"
+        "assert r.returncode == 0 and json.loads(r.stdout)['results'], r.stderr\n"
         "assert daemon.stop()\n"
         "th.join(timeout=30)\n"
         "assert not th.is_alive()\n"
@@ -339,7 +365,8 @@ def test_port_search_never_imports_jax(env, tmp_path):
         "print('NO_JAX_OK')\n"
     )
     child_env = dict(os.environ, HOME=str(tmp_path / "home"), PYTHONPATH=str(root),
-                     SEMTOOLS_TPU_NO_FETCH="1", SEMTOOLS_TPU_ALLOW_FALLBACK="1")
+                     SEMTOOLS_TPU_NO_FETCH="1", SEMTOOLS_TPU_ALLOW_FALLBACK="1",
+                     SEMTOOLS_TORCH_VIRTUAL_DEVICES="4")
     child_env.pop("SEMTOOLS_WORKSPACE", None)
     with contextlib.ExitStack() as stack:
         for srv in servers.values():
@@ -354,6 +381,7 @@ def test_port_search_never_imports_jax(env, tmp_path):
     assert json.loads(out[: out.index("\n}\n") + 2])["results"]
     assert "lazy dog" not in proc.stderr and "Updating workspace" in proc.stderr
     assert "int4-mxu-scan" in out  # the second workspace search served the int4 tier
+    assert "sharded-exact-scan[4]" in out  # SEMTOOLS_TPU_SHARDED=1 on 4 CPU shards
     assert "Index ready: ivf-pq serving" in out and "Index: Yes (ivf-pq)" in out
     assert ".local.md" in out and "Job creation failed (attempt 1/11)" in proc.stderr
     for answer in ("chat answer", "responses answer", "stdin answer"):

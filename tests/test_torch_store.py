@@ -11,8 +11,8 @@ store (freed zero slots) and ``SEMTOOLS_TPU_SCAN=host``. The
 int4-tier distances are bit-equal (both re-rank the same candidates in
 numpy); f32 distances agree within 1e-6 (matmul summation order). The
 on-disk files are byte-equal, each package serves the other's workspace, and
-both name the same serving tier; a tier the port does not have raises "not
-ported yet".
+both name the same serving tier, the sharded one included (the port's mesh
+of ``SEMTOOLS_TORCH_VIRTUAL_DEVICES`` CPU shards).
 
 Both sides pin ``SEMTOOLS_TPU_SCAN=device`` (the JAX package's link probe
 would otherwise pick the host path on the CPU) and the JAX side
@@ -29,8 +29,9 @@ import pytest
 from semtools_tpu.store import device_cache as jax_device_cache
 from semtools_tpu.store.store import DocMeta as JaxDocMeta
 from semtools_tpu.store.store import Store as JaxStore
+from semtools_tpu_torch.parallel import mesh as torch_mesh
 from semtools_tpu_torch.store import device_cache, patch_cache
-from semtools_tpu_torch.store.store import DocMeta, NotPortedError, Store
+from semtools_tpu_torch.store.store import DocMeta, Store
 
 DIM = 32
 F32_ATOL = 1e-6
@@ -298,7 +299,21 @@ def test_unported_tiers_raise(stores, monkeypatch, env, what):
             want, got = _search(j, t, _queries(docs), SUBSETS[subset], top_k, max_distance)
             _assert_same(want, got, exact=False)
         return
-    with pytest.raises(NotPortedError, match=f"{what}.*not ported yet"):
-        t.serving_tier()
-    with pytest.raises(NotPortedError, match="not ported yet"):
-        t.search_line_embeddings_batched(_queries(docs), SUBSETS["all"], 5)
+    # sharded serving, ported since: SEMTOOLS_TPU_SHARDED=1 on a one-device
+    # mesh serves the single-device tier, as the JAX package does with fewer
+    # than two devices (its session has 8: SEMTOOLS_TPU_SHARDED=0 pins it to
+    # one); on an 8-shard mesh both name the sharded int8 tier. Same hits on
+    # both meshes (int8 re-rank: distances bit-equal).
+    monkeypatch.setenv("SEMTOOLS_TPU_STORE_INT8", "1")
+    for shards, tier in ((1, "int8-mxu-scan"), (8, "sharded-int8-scan[8]")):
+        monkeypatch.setattr(torch_mesh, "_VIRTUAL", shards)
+        monkeypatch.setenv("SEMTOOLS_TPU_SHARDED", "0" if shards == 1 else "1")
+        want = [j.search_line_embeddings_batched(_queries(docs), SUBSETS[sub], k, m)
+                for sub, k, m in (("all", 5, None), ("two", 8, None), ("all", 10, 0.9))]
+        assert j.serving_tier() == tier  # after a search: its device count is real
+        monkeypatch.setenv("SEMTOOLS_TPU_SHARDED", "1")
+        assert t.serving_tier() == tier
+        got = [t.search_line_embeddings_batched(_queries(docs), SUBSETS[sub], k, m)
+               for sub, k, m in (("all", 5, None), ("two", 8, None), ("all", 10, 0.9))]
+        for w, g in zip(want, got):
+            _assert_same(w, g, exact=True)
