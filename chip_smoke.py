@@ -38,13 +38,25 @@ exits non-zero without them. Phases:
    generator; ragged n_true; planted duplicates across the 128- and 512-row
    boundaries), Q in {1, 8, 32, 40} (40: two launches of at most 32), k in
    {3, 10, 64, 200}, masks as in phase 3. Integer arithmetic: the sweep's
-   sims and block maxima bit-equal, the phases as in phase 3; the deep
-   candidates of the kernel path equal those of the plain sweep through the
-   same extraction, also past the candidate cap (``SEMTOOLS_TPU_INT4_CAP``),
-   and equal the rows at or above their lowest sim when under it. Then
-   ``int4_topk_scan`` through its public entry point (counts reset just
-   before: the two-phase kernels' own path) against the plain phases, and
-   times as in phase 2 at N = 10M, Q = 8, k = 10;
+   sims and block maxima bit-equal, the phases as in phase 3; the selection
+   kernels (``csrc/select_above.cu``: ``int4_cutoff_counts`` in each of its
+   modes, ``int4_extract_above`` at the batch's cap and past the cap) against
+   their plain versions on the same sweep: the margin on the card and the
+   cutoffs bit-equal, the counts equal, the candidate sets equal (a second
+   call gives the same tensor); query 1 is a row copied into one row of every
+   1,500 (its candidates alone span 1,333 / 6,666 blocks: n_b >= 1024); the
+   deep candidates of the kernel path equal those of the plain sweep through
+   the plain selection, also past the candidate cap
+   (``SEMTOOLS_TPU_INT4_CAP``: query 0 keeps its first four duplicates,
+   query 1 the copies in the four lowest blocks), and equal the rows at or
+   above their lowest sim when under it. Then ``int4_topk_scan`` through its
+   public entry point (counts reset just before: the two-phase kernels' own
+   path) against the plain phases, and times as in phase 2 at N = 10M, Q =
+   8, k = 10; ``int4_deep_candidates`` also against the sweep kernel plus
+   the plain selection (and with the dense query), and one call of it,
+   plain and masked, must make exactly one synchronising read
+   (``torch.cuda.set_sync_debug_mode("warn")``) and launch no sort or top-k
+   kernel (its profiler listing);
 5. probes (``semtools_tpu_torch/probes``, kernels ``csrc/stream.cu`` and
    ``csrc/probe_tilemax.cu``): every tile-max variant (masked and not; a
    whole-tile max, 512-row sub-tiles, full sims) and the stream kernels
@@ -145,7 +157,9 @@ exits non-zero without them. Phases:
    that leaves the last shard partly padding) against the single-device
    kernel path on the same tensors (f32 under phase 2's near-tie rule, int8
    exactly, int4 as candidate sets; planted duplicates lowest first), each
-   kernel launched once per shard, both timed; then on the workspace of
+   kernel launched once per shard (the int4 cutoff kernel twice and once for
+   the merge; one synchronising read, no sort, as in phase 4), both timed;
+   then on the workspace of
    phase 7 every command on one device (``SEMTOOLS_TPU_SHARDED=0``) and on
    the mesh (``=1``), outputs equal: ``search -w``, ``-Q 8``, the 300-file
    subset, ``-m``, a one-line edit served by a patch of the sharded corpus,
@@ -191,6 +205,7 @@ FUSED_SOURCE = "semtools_tpu_torch/csrc/fused_scan.cu"
 INT8_SOURCE = "semtools_tpu_torch/csrc/int8_scan.cu"
 INT4_SOURCE = "semtools_tpu_torch/csrc/int4_scan.cu"
 SELECT_SOURCE = "semtools_tpu_torch/csrc/select.cu"
+SELECT_ABOVE_SOURCE = "semtools_tpu_torch/csrc/select_above.cu"
 REPLACES = {
     "fused_tilemax": "semtools_tpu/ops/pallas_scan.py:269",
     "fused_rescan_topk": "semtools_tpu/ops/pallas_scan.py:293",
@@ -206,12 +221,24 @@ REPLACES = {
     "int4_rescan_topk": "semtools_tpu/ops/int4_scan.py:232",
     "int4_tilemax_masked": "semtools_tpu/ops/int4_scan.py:608",
     "int4_rescan_topk_masked": "semtools_tpu/ops/int4_scan.py:624",
+    # the XLA between K6 and the answer: _int4_cutoff_counts after the
+    # pallas_call, and _extract_above
+    "int4_cutoff_counts": "semtools_tpu/ops/int4_scan.py:420",
+    "int4_extract_above": "semtools_tpu/ops/int4_scan.py:439",
 }
 SOURCES = {"fused": FUSED_SOURCE, "int8": INT8_SOURCE, "int4": INT4_SOURCE,
            "select": SELECT_SOURCE}
+SELECTION = ("int4_cutoff_counts", "int4_extract_above")  # csrc/select_above.cu
+# the device kernels int4_extract_above launches
+EXTRACT_KERNELS = ("int4_rule_kernel", "int4_block_counts_kernel", "int4_offsets_kernel",
+                   "int4_write_kernel")
 K5 = ("int4_tilemax", "select_subtiles", "int4_rescan_topk", "int4_tilemax_masked",
       "int4_rescan_topk_masked")
 K6 = ("int4_sims_max", "int4_sims_max_masked")
+# Copies of row 9 every DENSE_STRIDE rows of the packed corpora (one a
+# block): query 1 of the int4 checks is that row, so its candidates alone
+# span 1,333 blocks at 2M rows and 6,666 at 10M (n_b 2048 and 8192 at least).
+DENSE_STRIDE = 1500
 INT4_BUDGET = 209_715_200  # bytes: under the int8 corpus of 1M x 256, over the int4 one
 # bytes: between the reduced-64d corpus (65 B a slot, 1.002M slots) and the
 # int4 one (128 B), then between the reduced-32d (33 B) and the 64d one
@@ -681,21 +708,24 @@ def make_packed(n, n_true, gen):
     p4 = torch.randint(-128, 128, (n, D // 2), generator=gen, device="cuda", dtype=torch.int8)
     dups = [5, 127, 128, 511, 512, n // 2, n_true - 1]
     p4[dups[1:]] = p4[5].clone()
+    p4[9 + DENSE_STRIDE:n_true:DENSE_STRIDE] = p4[9].clone()
     return p4, dups
 
 
-def int4_queries(p4, qn, gen):
+def int4_queries(p4, qn, gen, dense=False):
     """(f32 queries, their int8 form, its scale); the first query is row 5's
-    unpacked values, so the planted duplicates are its best rows."""
+    unpacked values, so the planted duplicates are its best rows; with
+    ``dense`` the second is row 9's, whose copies fill one row a block."""
     import torch
 
     from semtools_tpu_torch.ops import int4_scan as i4
     from semtools_tpu_torch.ops import int8_scan as i8
 
     q = torch.randn((qn, D), generator=gen, device="cuda")
-    row = i4.unpack_f32(p4[5])
-    row[: D // 2] -= 8
-    q[0] = row
+    for r, src in enumerate((5, 9) if dense and qn > 1 else (5,)):
+        row = i4.unpack_f32(p4[src])
+        row[: D // 2] -= 8
+        q[r] = row
     q8, q_scale = i8.quantize_global(q)
     return q, q8.contiguous(), q_scale
 
@@ -729,6 +759,55 @@ def plain_int4_topk(q8, p4, n_true, k, mask):
                                     k, mask)
 
 
+def bits_equal(a, b) -> bool:
+    import torch
+
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def check_selection(q8, sims, bmax, n_true, what):
+    """Each selection kernel against its plain version on one sweep's sims
+    (k_cut 10): the margin on the card and the cutoffs bit-equal, the counts
+    equal, the extraction's sets equal at the batch's cap and at OVER_CAP
+    (the same tensor again from a second call), and the sharded modes of
+    int4_cutoff_counts (a shard's tops, the cutoff of merged tops, the
+    counts against a given cutoff). Returns the batch's (n_b, cap)."""
+    import torch
+
+    from semtools_tpu_torch.ops import int4_scan as i4
+
+    k_cut = 10
+    margin = i4.margin_on_device(q8)
+    plain_margin = torch.tensor(i4.cutoff_margin(q8), device=q8.device)
+    if not bits_equal(margin, plain_margin):
+        raise AssertionError(f"{what}: margin {margin.item()} on the card, {plain_margin.item()} "
+                             f"in numpy")
+    cutoff, count, n_blocks = i4.select_cutoff(sims, bmax, margin, k_cut)
+    want_c, want_n, want_b = i4.cutoff_counts(sims, bmax, plain_margin, k_cut)
+    if not (bits_equal(cutoff, want_c) and torch.equal(count, want_n)
+            and torch.equal(n_blocks, want_b)):
+        raise AssertionError(f"{what}: int4_cutoff_counts differs from cutoff_counts")
+    cap, n_b = i4.candidate_sizes(*i4.batch_maxima(count, n_blocks), n_true, bmax.shape[1])
+    for c in (cap, min(cap, int(OVER_CAP))):
+        got = i4.select_above(sims, bmax, cutoff, count, n_b=n_b, cap=c)
+        same_candidates(f"{what}: int4_extract_above (cap {c})", got,
+                        i4.extract_above(sims, bmax, want_c, n_b=n_b, cap=c), n_true)
+        if not torch.equal(got, i4.select_above(sims, bmax, cutoff, count, n_b=n_b, cap=c)):
+            raise AssertionError(f"{what}: int4_extract_above (cap {c}) is not deterministic")
+    tops = i4.block_tops(sims, bmax, k_cut)
+    if not torch.equal(tops.sort(dim=1, descending=True).values,
+                       i4.block_tops_reference(sims, bmax, k_cut)):
+        raise AssertionError(f"{what}: int4_cutoff_counts' tops differ from the plain ones")
+    merged = torch.cat([tops, tops.roll(1, 0)], dim=1)
+    if not bits_equal(i4.tops_cutoff(merged, margin, k_cut),
+                      i4.tops_cutoff_reference(merged, plain_margin, k_cut)):
+        raise AssertionError(f"{what}: the cutoff of merged tops differs from the plain one")
+    got_n, got_b = i4.counts_above(sims, bmax, want_c)
+    if not (torch.equal(got_n, want_n) and torch.equal(got_b, want_b)):
+        raise AssertionError(f"{what}: the counts against a given cutoff differ")
+    return n_b, cap
+
+
 def int4_kernel_phase():
     import torch
 
@@ -742,7 +821,8 @@ def int4_kernel_phase():
         n_true = n - 777
         p4, dups = make_packed(n, n_true, gen)
         for qn in (1, 8, 32, 40):
-            q, q8, _ = int4_queries(p4, qn, gen)
+            q, q8, _ = int4_queries(p4, qn, gen, dense=True)
+            sizes = {}
             for label, mask in int8_masks(n, gen).items():
                 sfx = "" if mask is None else "_masked"
                 ref_sims, ref_max = [], []
@@ -767,10 +847,15 @@ def int4_kernel_phase():
                         equal(f"int4_rescan_topk{sfx} filler rows", i, ir)
                         del v, i, vr, ir
                 ref_sims, ref_max = torch.cat(ref_sims), torch.cat(ref_max)
+                sizes[label] = check_selection(q8, ref_sims, ref_max, n_true,
+                                               f"int4 N={n} Q={qn} mask {label}")
+                if qn > 1 and label != "few" and sizes[label][0] < 1024:
+                    raise AssertionError(f"int4 N={n} Q={qn} mask {label}: n_b "
+                                         f"{sizes[label][0]}, not the dense query's 1024+")
                 cand = i4.int4_deep_candidates(q, p4, n_true=n_true, mask=mask)
                 same_candidates(f"deep candidates ({label})", cand,
-                                i4.select_candidates(q8, ref_sims, ref_max, n_true), n_true,
-                                ref_sims)
+                                i4.select_candidates_reference(q8, ref_sims, ref_max, n_true),
+                                n_true, ref_sims)
                 if label == "few" and not all(
                         int((c < n_true).sum()) == int(mask[:n_true].sum()) for c in cand):
                     raise AssertionError("int4 deep candidates: not every kept row")
@@ -779,7 +864,8 @@ def int4_kernel_phase():
                 del ref_sims, ref_max, cand
                 torch.cuda.empty_cache()
             log(f"kernels: int4 N={n} n_true={n_true} Q={qn} k=3,10,64,200 masks none/half/few: "
-                f"equal to the plain versions; deep candidates equal the plain path's")
+                f"equal to the plain versions; deep candidates equal the plain path's; the "
+                f"selection kernels equal theirs at (n_b, cap) {sizes} and at cap {OVER_CAP}")
         if n == 10_000_000:
             launches = int4_topk_path(p4, n_true, dups, gen)
             times = time_int4_kernels(p4, n_true, gen)
@@ -800,13 +886,17 @@ def check_over_cap(q, q8, p4, n_true, mask, ref_sims, ref_max):
     try:
         cand = i4.int4_deep_candidates(q, p4, n_true=n_true, mask=mask)
         same_candidates("deep candidates over the cap", cand,
-                        i4.select_candidates(q8, ref_sims, ref_max, n_true), n_true)
+                        i4.select_candidates_reference(q8, ref_sims, ref_max, n_true), n_true)
     finally:
         os.environ.pop("SEMTOOLS_TPU_INT4_CAP")
     if cand.shape[1] != int(OVER_CAP):
         raise AssertionError(f"over the cap: {cand.shape[1]} candidates per query")
     if mask is None and sorted(cand[0].tolist()) != [5, 127, 128, 511]:
         raise AssertionError(f"over the cap: query 0 kept {sorted(cand[0].tolist())}")
+    # the dense query's copies tie on sim and block max: the lowest blocks
+    dense = [9 + DENSE_STRIDE * j for j in range(int(OVER_CAP))]
+    if mask is None and sorted(cand[1].tolist()) != dense:
+        raise AssertionError(f"over the cap: query 1 kept {sorted(cand[1].tolist())}")
 
 
 def int4_topk_path(p4, n_true, dups, gen):
@@ -856,7 +946,8 @@ def time_int4_kernels(p4, n_true, gen):
     scan_ops = 2.0 * qn * n_true * D
 
     def plain_deep(m):
-        return i4.select_candidates(q8, *i4.sims_max_reference(q8, p4, n_true, m), n_true)
+        return i4.select_candidates_reference(q8, *i4.sims_max_reference(q8, p4, n_true, m),
+                                              n_true)
 
     t = {}
     for sfx, m in (("", None), ("_masked", mask)):
@@ -890,14 +981,128 @@ def time_int4_kernels(p4, n_true, gen):
             lambda: i4.int4_deep_candidates(q, p4, n_true=n_true, mask=m),
             lambda: plain_deep(m),
             bound(n_true * row_bytes + mask_bytes, scan_ops, "int8"), plain_reps=5)
+    t.update(time_selection(q8, p4, n_true))
     log_times(f"int4 N={p4.shape[0]} Q={qn} k={k}", t)
     for sfx in ("", "_masked"):
         after_phase1(t, "int4_topk_scan" + sfx, "int4_tilemax" + sfx)
-    busy, wall, ops = device_busy(lambda: i4.int4_deep_candidates(q, p4, n_true=n_true), top=6)
+    for sfx, m in (("", None), ("_masked", mask)):
+        deep = t["int4_deep_candidates" + sfx]
+        glue = {"ms": cuda_ms(lambda: plain_glue(q8, p4, n_true, m)),
+                "device_ms": device_ms(lambda: plain_glue(q8, p4, n_true, m))}
+        log(f"time: int4_deep_candidates{sfx} N={p4.shape[0]} Q={qn}: through the kernels "
+            f"{deep['ms']:.4f} ms events / {deep['device_ms']:.4f} ms device; K6 and the plain "
+            f"glue {glue['ms']:.4f} / {glue['device_ms']:.4f} ms; the sweep alone "
+            f"{t['int4_sims_max' + sfx]['ms']:.4f} / {t['int4_sims_max' + sfx]['device_ms']:.4f}"
+            f" ms ({CARD})")
+        selection_path(f"int4_deep_candidates{sfx}",
+                       lambda: i4.int4_deep_candidates(q, p4, n_true=n_true, mask=m))
+    busy, wall, ops = device_busy(lambda: i4.int4_deep_candidates(q, p4, n_true=n_true), top=8)
     log(f"time: int4_deep_candidates N={p4.shape[0]} Q={qn} under torch.profiler: device busy "
         f"{busy:.3f} ms of {wall:.3f} ms wall; by kernel: "
         + "; ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in ops))
+    q, q8, _ = int4_queries(p4, qn, gen, dense=True)
+    dense = {"ms": cuda_ms(lambda: i4.int4_deep_candidates(q, p4, n_true=n_true)),
+             "device_ms": device_ms(lambda: i4.int4_deep_candidates(q, p4, n_true=n_true)),
+             "glue_ms": cuda_ms(lambda: plain_glue(q8, p4, n_true, None), reps=5)}
+    log(f"time: int4_deep_candidates N={p4.shape[0]} Q={qn} with the dense query: "
+        f"{dense['ms']:.4f} ms events / {dense['device_ms']:.4f} ms device; K6 and the plain "
+        f"glue {dense['glue_ms']:.4f} ms events")
     return t
+
+
+def plain_glue(q8, p4, n_true, mask):
+    """The deep-candidate call as before the selection kernels: the sweep
+    kernel, then the plain selection on the card."""
+    from semtools_tpu_torch.ops import int4_scan as i4
+
+    return i4.select_candidates_reference(q8, *i4.sims_max(q8, p4, n_true, mask), n_true)
+
+
+def kernel_device_ms(fn, names, reps: int = 20) -> float:
+    """Device time a call of ``fn`` spends in the kernels whose names hold
+    one of ``names`` (torch.profiler over ``reps`` calls)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    events, _ = traced(fn, reps, want=names[0])
+    return sum(e.time_range.elapsed_us() for e in events
+               if any(n in e.name for n in names)) / 1e3 / reps
+
+
+def time_selection(q8, p4, n_true) -> dict:
+    """The selection kernels' numbers on the unmasked sweep of ``q8`` (k_cut
+    10, the batch's cap): the wrappers' events time (``select_cutoff``
+    includes its ``select_subtiles`` launch), the kernels' device time, the
+    plain versions' events time, the bound from the bytes this run's
+    counts make them move and, for the cutoff, one ``torch.topk`` of the
+    k_cut best sims."""
+    import torch
+
+    from semtools_tpu_torch.ops import int4_scan as i4
+
+    qn, k_cut = q8.shape[0], 10
+    sims, bmax = i4.sims_max(q8, p4, n_true)
+    nb = bmax.shape[1]
+    margin = i4.margin_on_device(q8)
+    cutoff, count, n_blocks = i4.select_cutoff(sims, bmax, margin, k_cut)
+    cap, n_b = i4.candidate_sizes(*i4.batch_maxima(count, n_blocks), n_true, nb)
+    hit_bytes = int(n_blocks.sum()) * i4.SIMS_ROWS * 4  # the sims of the blocks at or above
+    kb = min(k_cut, nb)
+    t = {"int4_cutoff_counts": {
+        "ms": cuda_ms(lambda: i4.select_cutoff(sims, bmax, margin, k_cut)),
+        "device_ms": kernel_device_ms(lambda: i4.select_cutoff(sims, bmax, margin, k_cut),
+                                      ("int4_cutoff_kernel", "int4_count_kernel")),
+        "plain_ms": cuda_ms(lambda: i4.cutoff_counts(sims, bmax, margin, k_cut)),
+        "library_ms": cuda_ms(lambda: torch.topk(sims, k_cut))}}
+    t["int4_cutoff_counts"].update(zip(("bound_ms", "bound_by"), bound(
+        qn * nb * 4 + qn * kb * (i4.SIMS_ROWS * 4 + 8) + hit_bytes + qn * 20 + 4,
+        float(qn * kb * i4.SIMS_ROWS * 4 + qn * nb), "f32")))
+    t["int4_extract_above"] = {
+        "ms": cuda_ms(lambda: i4.select_above(sims, bmax, cutoff, count, n_b=n_b, cap=cap)),
+        "device_ms": kernel_device_ms(
+            lambda: i4.select_above(sims, bmax, cutoff, count, n_b=n_b, cap=cap),
+            EXTRACT_KERNELS),
+        "plain_ms": cuda_ms(lambda: i4.extract_above(sims, bmax, cutoff, n_b=n_b, cap=cap)),
+        "library_ms": None}
+    t["int4_extract_above"].update(zip(("bound_ms", "bound_by"), bound(
+        qn * nb * 4 + hit_bytes + qn * 12 + qn * cap * 8, float(qn * nb + hit_bytes // 4),
+        "f32")))
+    log(f"time: the selection at N={p4.shape[0]} Q={qn}: {int(n_blocks.sum())} blocks at or "
+        f"above the cutoffs (n_b {n_b}), {int(count.sum())} rows (cap {cap}); select_cutoff "
+        f"device time in all (select_subtiles, memsets, both kernels) "
+        f"{device_ms(lambda: i4.select_cutoff(sims, bmax, margin, k_cut)):.4f} ms")
+    return t
+
+
+def selection_path(what, fn) -> None:
+    """One call of ``fn`` makes one synchronising read (the counts' maxima),
+    under ``torch.cuda.set_sync_debug_mode("warn")``, and its profiler
+    listing holds no sort or top-k kernel."""
+    import warnings
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message).lower()]
+    if len(syncs) != 1:
+        raise AssertionError(f"{what}: {len(syncs)} synchronising calls, want 1: {syncs}")
+    events, _ = traced(fn, want="int4_write_kernel")
+    names = sorted({e.name for e in events})
+    sorts = [n for n in names if "sort" in n.lower() or "topk" in n.lower()]
+    if sorts or not all(any(k in n for n in names) for k in EXTRACT_KERNELS):
+        raise AssertionError(f"{what}: device work {names}")
+    log(f"{what}: one synchronising read a call; {len(events)} device ops, no sort: "
+        + ", ".join(n[:40] for n in names))
 
 
 # The probes (semtools_tpu_torch/probes, ops/probes.py): each launch counter
@@ -1649,7 +1854,7 @@ def int4_workspace_steps(files, qfile, subset, thr):
             raise AssertionError(f"workspace ({label}): 'Updating workspace' printed")
         hits[label] = out
         log(f"workspace: search -w ({label}): {wall:.3f} s wall; stages: {stages}")
-    return hits, launches_of(K6, "int4 workspace")
+    return hits, launches_of(K6 + SELECTION, "int4 workspace")
 
 
 def build_timed(x, label, **kw):
@@ -2288,7 +2493,7 @@ def ask_int4_steps(files, subset, model, corpus, starts):
 
 SHARDS = 4  # the mesh of phase 11: one card cut into four shards
 SHARDED_PATH = ("fused_tilemax", "select_subtiles", "fused_rescan_topk", "int8_tilemax",
-                "int8_rescan_topk", "int4_sims_max")
+                "int8_rescan_topk", "int4_sims_max", *SELECTION)
 SHARDED_LAUNCHES = {}  # kernel -> launches on phase 11's sharded main path
 
 
@@ -2454,6 +2659,12 @@ def sharded_kernel_steps(mesh):
         ms = None if mask is None else shard_rows(mask, mesh)
         ids = once_per_shard(lambda: sh.sharded_int4_deep_candidates_device(
             q, p4s, n_true, mask=ms), (name,), f"sharded {name}")
+        # a shard's tops and counts, and the merged cutoff; one extraction a shard
+        selection = {n: kernels.launch_counts()[n] for n in SELECTION}
+        if selection != {"int4_cutoff_counts": 2 * SHARDS + 1, "int4_extract_above": SHARDS}:
+            raise AssertionError(f"sharded {name}: selection launches {selection}")
+        selection_path(f"sharded {name} deep candidates",
+                       lambda: sh.sharded_int4_deep_candidates_device(q, p4s, n_true, mask=ms))
         want = i4.int4_deep_candidates(q, p4, n_true=n_true, mask=mask)
         for r in range(qn):
             got_r, want_r = ids[r][ids[r] < n_true], want[r][want[r] < n_true]
@@ -2465,7 +2676,8 @@ def sharded_kernel_steps(mesh):
               lambda: i4.int4_deep_candidates(q, p4, n_true=n_true, mask=mask),
               lambda: sh.sharded_int4_deep_candidates_device(q, p4s, n_true, mask=ms))
     log("sharded: int4 deep-candidate sets equal the single device's, plain and masked; "
-        "K6 launched once per shard")
+        "K6 and int4_extract_above launched once per shard, int4_cutoff_counts twice and once "
+        "for the merge")
 
 
 def sharded_workspace_steps(args):
@@ -2694,13 +2906,13 @@ def main() -> int:
                if name.startswith("fused") or name == "select_subtiles"}
     path_of.update({name: ws_launches for name in REPLACES if name.startswith("int8")})
     path_of.update({name: k5_launches for name in K5 if name != "select_subtiles"})
-    path_of.update({name: k6_launches for name in K6})
+    path_of.update({name: k6_launches for name in K6 + SELECTION})
     summary = {"kernels": []}
     for name in REPLACES:
         r = times[name]
         summary["kernels"].append({
             "name": name, "route": "cuda",
-            "source": SOURCES[name.split("_")[0]],
+            "source": SELECT_ABOVE_SOURCE if name in SELECTION else SOURCES[name.split("_")[0]],
             "replaces": REPLACES[name],
             "launches": path_of[name][name],
             "max_abs_err": errs[name], "ms": r["ms"], "device_ms": r["device_ms"],

@@ -21,9 +21,13 @@ Two selection paths share the packed corpus:
 - :func:`int4_deep_candidates` (the store's serving path; kernel
   ``int4_sims_max[_masked]``, replacing ``_sims_max_kernel[_masked]``): one
   sweep writes every row's sim and every 512-row block's max, then
-  :func:`cutoff_counts` takes each query's exact ``k_cut``-th best minus a
-  noise margin and :func:`extract_above` returns every row at or above it,
-  up to a cap;
+  :func:`select_cutoff` takes each query's exact ``k_cut``-th best minus a
+  noise margin and counts the rows at or above it, and
+  :func:`select_above` returns them, up to a cap (``select_subtiles`` and
+  the kernels ``int4_cutoff_counts`` and ``int4_extract_above`` of
+  ``csrc/select_above.cu``, replacing the XLA of ``_int4_cutoff_counts`` and
+  ``_extract_above``; their plain versions :func:`cutoff_counts` and
+  :func:`extract_above`), with one host read between them;
 - :func:`int4_topk_scan` (exact top-k over the quantized sims; kernels
   ``int4_tilemax``, ``select_subtiles`` and ``int4_rescan_topk``, and the
   masked variants, replacing K5a-d and the XLA steps between and after
@@ -36,6 +40,7 @@ against the JAX package.
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Optional, Tuple
 
@@ -60,6 +65,7 @@ from semtools_tpu_torch.ops.int8_scan import (
     launch_rescan_topk,
     launch_tilemax,
     quantize_global,
+    quantize_on_device,
 )
 from semtools_tpu_torch.utils.env import env_int
 
@@ -240,7 +246,7 @@ def sims_max(q8, p4, n_true: int, mask=None, out=None):
     return out
 
 
-# -- the deep-candidate extraction (plain torch, as XLA in the JAX package) ---
+# -- the deep-candidate selection: plain versions (XLA in the JAX package) -----
 
 
 def _gather_blocks(sims: torch.Tensor, bids: torch.Tensor) -> torch.Tensor:
@@ -248,6 +254,19 @@ def _gather_blocks(sims: torch.Tensor, bids: torch.Tensor) -> torch.Tensor:
     qn = sims.shape[0]
     blocks = sims.view(qn, -1, SIMS_ROWS)
     return blocks.gather(1, bids[:, :, None].expand(-1, -1, SIMS_ROWS)).reshape(qn, -1)
+
+
+def _cutoff_of(t: torch.Tensor, margin: torch.Tensor) -> torch.Tensor:
+    """t - margin, or -3e38 where t is -inf: fewer selectable rows than
+    ``k_cut`` then extract every finite sim, not the -inf padding and
+    masked rows (-inf >= -inf would hold)."""
+    return torch.where(torch.isfinite(t), t - margin, torch.full_like(t, -3e38))
+
+
+def counts_above_reference(sims, block_max, cutoff):
+    """(count [Q], n_blocks [Q]): each query's rows and blocks (by their
+    max) at or above its cutoff."""
+    return (sims >= cutoff[:, None]).sum(dim=1), (block_max >= cutoff[:, None]).sum(dim=1)
 
 
 def cutoff_counts(sims, block_max, margin: torch.Tensor, k_cut: int):
@@ -258,11 +277,8 @@ def cutoff_counts(sims, block_max, margin: torch.Tensor, k_cut: int):
     hold the ``k_cut`` best rows (a block ranks by its best row)."""
     kb = min(k_cut, block_max.shape[1])
     cand = _gather_blocks(sims, _sort_desc(block_max, kb)[1])
-    t = _sort_desc(cand, min(k_cut, cand.shape[1]))[0][:, -1]
-    cutoff = torch.where(torch.isfinite(t), t - margin, torch.full_like(t, -3e38))
-    count = (sims >= cutoff[:, None]).sum(dim=1)
-    n_blocks = (block_max >= cutoff[:, None]).sum(dim=1)
-    return cutoff, count, n_blocks
+    cutoff = _cutoff_of(_sort_desc(cand, min(k_cut, cand.shape[1]))[0][:, -1], margin)
+    return (cutoff, *counts_above_reference(sims, block_max, cutoff))
 
 
 def extract_above(sims, block_max, cutoff, *, n_b: int, cap: int) -> torch.Tensor:
@@ -284,6 +300,22 @@ def extract_above(sims, block_max, cutoff, *, n_b: int, cap: int) -> torch.Tenso
     return F.pad(ids, (0, cap - k_in), value=n_pad)
 
 
+def block_tops_reference(sims, block_max, k_cut: int) -> torch.Tensor:
+    """[Q, k_cut]: the ``k_cut`` best sims of each query's min(k_cut, nb)
+    best blocks, best first, -inf past their rows: a shard's offer to the
+    sharded cutoff."""
+    kb = min(k_cut, block_max.shape[1])
+    best = _sort_desc(_gather_blocks(sims, _sort_desc(block_max, kb)[1]),
+                      min(k_cut, kb * SIMS_ROWS))[0]
+    return F.pad(best, (0, k_cut - best.shape[1]), value=_NEG_INF)
+
+
+def tops_cutoff_reference(tops, margin: torch.Tensor, k_cut: int) -> torch.Tensor:
+    """[Q] cutoffs from the shards' merged tops [Q, S * k_cut]: their
+    ``k_cut``-th best minus ``margin`` (-3e38 where it is -inf)."""
+    return _cutoff_of(_sort_desc(tops, k_cut)[0][:, -1], margin)
+
+
 def cutoff_margin(q8, margin_sigmas: Optional[float] = None) -> np.float32:
     """The noise margin below the ``k_cut``-th best: ``margin_sigmas`` (default
     :func:`int4_margin_sigmas`) sigmas of the largest query int norm (float64,
@@ -295,21 +327,200 @@ def cutoff_margin(q8, margin_sigmas: Optional[float] = None) -> np.float32:
     return np.float32(margin_sigmas * sigma)
 
 
+def margin_on_device(q8, margin_sigmas: Optional[float] = None) -> torch.Tensor:
+    """:func:`cutoff_margin` as a 0-d f32 tensor on ``q8``'s device, with no
+    host read, bit for bit: squared norms of int8 rows are exact integers in
+    float64, sqrt rounds correctly (so the square root of the largest is the
+    largest square root), and the division is by a tensor (a host scalar
+    divisor may become a reciprocal multiply on the card)."""
+    if margin_sigmas is None:
+        margin_sigmas = int4_margin_sigmas()
+    sqrt12 = torch.full((), math.sqrt(12.0), dtype=torch.float64, device=q8.device)
+    return (q8.double().square().sum(dim=1).amax().sqrt() / sqrt12 * margin_sigmas).float()
+
+
+def batch_maxima(count: torch.Tensor, n_blocks: torch.Tensor) -> Tuple[int, int]:
+    """The batch's largest count and block count: the selection's one host
+    read (the JAX package's download of the counts)."""
+    max_count, max_nb = torch.stack([count.max(), n_blocks.max()]).tolist()
+    return int(max_count), int(max_nb)
+
+
+def candidate_sizes(max_count: int, max_nb: int, n_rows: int, nb: int) -> Tuple[int, int]:
+    """(cap, n_b) of the extraction, as in the JAX package: the largest
+    count and block count rounded up to powers of two (at least 16 and 4),
+    the cap at most :func:`int4_candidate_cap` and n_b at most the ``nb``
+    blocks."""
+    cap = min(1 << max((max_count - 1).bit_length(), 4), int4_candidate_cap(n_rows))
+    n_b = min(1 << max((max_nb - 1).bit_length(), 2), nb)
+    return cap, n_b
+
+
+def select_candidates_reference(q8, sims, block_max, n_rows: int, *,
+                                margin_sigmas: Optional[float] = None,
+                                k_cut: int = 10) -> torch.Tensor:
+    """:func:`select_candidates` through the plain versions on any device
+    (the numpy margin, :func:`cutoff_counts`, :func:`extract_above`): the
+    CPU path, and the card's yardstick."""
+    margin = torch.tensor(cutoff_margin(q8, margin_sigmas), device=sims.device)
+    cutoff, count, n_blocks = cutoff_counts(sims, block_max, margin, k_cut)
+    cap, n_b = candidate_sizes(*batch_maxima(count, n_blocks), n_rows, block_max.shape[1])
+    return extract_above(sims, block_max, cutoff, n_b=n_b, cap=cap)
+
+
+# -- the deep-candidate selection on the card ------------------------------------
+
+
+def _selection_operands(sims, block_max) -> Tuple[int, int]:
+    """(Q, nb) of a sweep's outputs; raises unless they are the contiguous,
+    16-byte aligned f32 [Q, nb * SIMS_ROWS] and [Q, nb] of one CUDA device."""
+    qn, nb = block_max.shape if block_max.dim() == 2 else (0, 0)
+    ok = (sims.device == block_max.device and sims.device.type == "cuda"
+          and sims.dtype == block_max.dtype == torch.float32
+          and tuple(sims.shape) == (qn, nb * SIMS_ROWS) and qn >= 1 and nb >= 1
+          and sims.is_contiguous() and block_max.is_contiguous() and sims.data_ptr() % 16 == 0)
+    if not ok:
+        raise ValueError(f"the selection takes a sweep's contiguous f32 [Q, nb * {SIMS_ROWS}] "
+                         f"sims and [Q, nb] maxima on one CUDA device; got "
+                         f"{tuple(sims.shape)} {sims.dtype} on {sims.device}, "
+                         f"{tuple(block_max.shape)} {block_max.dtype} on {block_max.device}")
+    return qn, nb
+
+
+def _best_blocks(block_max, kb: int) -> torch.Tensor:
+    """[Q, kb] int64: each query's kb best blocks (``top_subtiles``, 32
+    queries a launch)."""
+    parts = [top_subtiles(block_max[q0 : q0 + MAX_QUERIES], kb)
+             for q0 in range(0, block_max.shape[0], MAX_QUERIES)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_cutoff_counts(qn: int, sims=None, block_max=None, *, bids=None, extra=None,
+                          margin=None, k_cut: int = 0, tops=None, cutoff=None, count=None,
+                          n_blocks=None) -> None:
+    """One launch of ``int4_cutoff_counts`` (csrc/select_above.cu): the
+    cutoff kernel where ``bids`` or ``extra`` is given, then the count
+    kernel where ``count`` is."""
+    nb = 0 if block_max is None else block_max.shape[1]
+    code = kernels.library().semtools_int4_cutoff_counts(
+        _ptr(sims), _ptr(block_max), qn, nb, _ptr(bids), 0 if bids is None else bids.shape[1],
+        _ptr(extra), 0 if extra is None else extra.shape[1], _ptr(margin), k_cut, _ptr(tops),
+        _ptr(cutoff), _ptr(count), _ptr(n_blocks), _stream())
+    kernels.check(code, "int4_cutoff_counts")
+
+
+def _check_per_query(t, dtype, qn: int, device) -> None:
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != (qn,) or not t.is_contiguous():
+        raise ValueError(f"a per-query operand must be a contiguous [{qn}] {dtype} on {device}; "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _margin_operand(margin, device) -> torch.Tensor:
+    if margin.device != device or margin.dtype != torch.float32 or margin.numel() != 1:
+        raise ValueError(f"the margin must be one f32 on {device}; got {margin.dtype} "
+                         f"{tuple(margin.shape)} on {margin.device}")
+    return margin
+
+
+def select_cutoff(sims, block_max, margin: torch.Tensor, k_cut: int):
+    """:func:`cutoff_counts` (``select_subtiles`` for the min(k_cut, nb)
+    best blocks, then kernel ``int4_cutoff_counts``): the count reads only
+    the blocks whose max is at or above the cutoff, where every row at or
+    above it lies. ``margin`` is a 0-d f32 tensor on the sweep's device."""
+    if sims.device.type == "cpu":
+        return cutoff_counts(sims, block_max, margin, k_cut)
+    qn, nb = _selection_operands(sims, block_max)
+    dev = sims.device
+    cutoff = torch.empty(qn, dtype=torch.float32, device=dev)
+    count = torch.empty(qn, dtype=torch.int64, device=dev)
+    n_blocks = torch.empty(qn, dtype=torch.int64, device=dev)
+    _launch_cutoff_counts(qn, sims, block_max, bids=_best_blocks(block_max, min(k_cut, nb)),
+                          margin=_margin_operand(margin, dev), k_cut=k_cut, cutoff=cutoff,
+                          count=count, n_blocks=n_blocks)
+    return cutoff, count, n_blocks
+
+
+def select_above(sims, block_max, cutoff, count, *, n_b: int, cap: int) -> torch.Tensor:
+    """:func:`extract_above` (kernel ``int4_extract_above``) with ``count``
+    the counts of :func:`select_cutoff`: the same set of rows, in block
+    order then row order; a query past ``cap`` keeps the cap best by
+    ``lax.top_k``'s order over its gathered blocks."""
+    if sims.device.type == "cpu":
+        return extract_above(sims, block_max, cutoff, n_b=n_b, cap=cap)
+    qn, nb = _selection_operands(sims, block_max)
+    n_b = min(n_b, nb)
+    _check_per_query(cutoff, torch.float32, qn, sims.device)
+    _check_per_query(count, torch.int64, qn, sims.device)
+    out = torch.empty((qn, cap), dtype=torch.int64, device=sims.device)
+    # per query: its rule (4 words), the per-block counts, the listing of
+    # its candidate blocks (read past the cap only)
+    scratch = torch.empty(qn * (4 + nb + n_b), dtype=torch.int32, device=sims.device)
+    code = kernels.library().semtools_int4_extract_above(
+        sims.data_ptr(), block_max.data_ptr(), qn, nb, cutoff.data_ptr(), count.data_ptr(), cap,
+        n_b, scratch.data_ptr(), out.data_ptr(), _stream())
+    kernels.check(code, "int4_extract_above")
+    return out
+
+
+def block_tops(sims, block_max, k_cut: int) -> torch.Tensor:
+    """:func:`block_tops_reference` (``select_subtiles``, then kernel
+    ``int4_cutoff_counts`` writing the tops in no order)."""
+    if sims.device.type == "cpu":
+        return block_tops_reference(sims, block_max, k_cut)
+    qn, nb = _selection_operands(sims, block_max)
+    tops = torch.empty((qn, k_cut), dtype=torch.float32, device=sims.device)
+    _launch_cutoff_counts(qn, sims, block_max, bids=_best_blocks(block_max, min(k_cut, nb)),
+                          k_cut=k_cut, tops=tops)
+    return tops
+
+
+def tops_cutoff(tops, margin: torch.Tensor, k_cut: int) -> torch.Tensor:
+    """:func:`tops_cutoff_reference` (kernel ``int4_cutoff_counts``)."""
+    if tops.device.type == "cpu":
+        return tops_cutoff_reference(tops, margin, k_cut)
+    if tops.dtype != torch.float32 or tops.dim() != 2 or not 1 <= k_cut <= tops.shape[1]:
+        raise ValueError(f"tops {tops.dtype} {tuple(tops.shape)} for k_cut={k_cut}")
+    cutoff = torch.empty(tops.shape[0], dtype=torch.float32, device=tops.device)
+    _launch_cutoff_counts(tops.shape[0], extra=tops.contiguous(),
+                          margin=_margin_operand(margin, tops.device), k_cut=k_cut, cutoff=cutoff)
+    return cutoff
+
+
+def counts_above(sims, block_max, cutoff):
+    """:func:`counts_above_reference` (kernel ``int4_cutoff_counts``, its
+    count kernel alone)."""
+    if sims.device.type == "cpu":
+        return counts_above_reference(sims, block_max, cutoff)
+    qn, nb = _selection_operands(sims, block_max)
+    _check_per_query(cutoff, torch.float32, qn, sims.device)
+    count = torch.empty(qn, dtype=torch.int64, device=sims.device)
+    n_blocks = torch.empty(qn, dtype=torch.int64, device=sims.device)
+    _launch_cutoff_counts(qn, sims, block_max, cutoff=cutoff, count=count, n_blocks=n_blocks)
+    return count, n_blocks
+
+
 def select_candidates(q8, sims, block_max, n_rows: int, *,
                       margin_sigmas: Optional[float] = None, k_cut: int = 10) -> torch.Tensor:
-    """The extraction half of :func:`int4_deep_candidates`, on a sweep's
+    """The selection half of :func:`int4_deep_candidates`, on a sweep's
     ([Q, n_pad] sims, [Q, n_pad / SIMS_ROWS] block maxima) of ``n_rows``
     rows for the int8 queries ``q8``.
 
     One margin for the batch, from the largest query int norm (float64, then
     f32); ``cap`` and ``n_b`` from the whole batch's counts, rounded up to
-    powers of two, as in the JAX package."""
-    margin = torch.tensor(cutoff_margin(q8, margin_sigmas), device=sims.device)
-    cutoff, count, n_blocks = cutoff_counts(sims, block_max, margin, k_cut)
-    max_count, max_nb = int(count.max()), int(n_blocks.max())
-    cap = min(1 << max((max_count - 1).bit_length(), 4), int4_candidate_cap(n_rows))
-    n_b = min(1 << max((max_nb - 1).bit_length(), 2), block_max.shape[1])
-    return extract_above(sims, block_max, cutoff, n_b=n_b, cap=cap)
+    powers of two, as in the JAX package. On a card: the margin, the cutoff,
+    the counts and the extraction stay there, and the counts' maxima are
+    the one host read. On the CPU: :func:`select_candidates_reference`."""
+    if sims.device.type == "cpu":
+        return select_candidates_reference(q8, sims, block_max, n_rows,
+                                           margin_sigmas=margin_sigmas, k_cut=k_cut)
+    cutoff, count, n_blocks = select_cutoff(sims, block_max, margin_on_device(q8, margin_sigmas),
+                                            k_cut)
+    cap, n_b = candidate_sizes(*batch_maxima(count, n_blocks), n_rows, block_max.shape[1])
+    return select_above(sims, block_max, cutoff, count, n_b=n_b, cap=cap)
 
 
 def int4_deep_candidates(
@@ -320,12 +531,13 @@ def int4_deep_candidates(
     sim is within the noise margin of the query's exact ``k_cut``-th best, as
     [Q, cap] int64 rows on the corpus device (unordered; entries >= the
     corpus rows are sentinels). ``q`` is f32 [Q, D] (numpy or tensor),
-    quantized here; rows >= ``n_true`` and rows where ``mask`` is 0 are
-    never candidates. Batches above 32 queries sweep in chunks of 32 into
-    one [Q, n_pad] buffer; :func:`select_candidates` extracts from it."""
+    quantized here on the corpus device; rows >= ``n_true`` and rows where
+    ``mask`` is 0 are never candidates. Batches above 32 queries sweep in
+    chunks of 32 into one [Q, n_pad] buffer; :func:`select_candidates`
+    extracts from it. On a card, with ``q`` there, the one host read is the
+    counts' maxima."""
     dev = p4.device
-    q8, _ = quantize_global(torch.as_tensor(q, dtype=torch.float32).to(dev))
-    q8 = q8.contiguous()
+    q8 = quantize_on_device(torch.as_tensor(q, dtype=torch.float32).to(dev))[0].contiguous()
     qn = q8.shape[0]
     n = p4.shape[0] if n_true is None else min(n_true, p4.shape[0])
     if n == 0:

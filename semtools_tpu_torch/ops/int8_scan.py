@@ -87,18 +87,22 @@ def _quantize_numpy(x: np.ndarray) -> Tuple[np.ndarray, float]:
     return q, scale
 
 
-def _quantize_torch(x: torch.Tensor) -> Tuple[torch.Tensor, float]:
-    """The numpy version's arithmetic on a tensor, bit for bit: the amax is
-    exact, ``scale = amax / 127`` in Python floats, and each element is
-    divided by the f32-rounded scale (a tensor operand: CUDA's division by
-    a host scalar multiplies by its reciprocal, which can round
-    differently), rounded half to even and clipped."""
+def quantize_on_device(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The numpy version's arithmetic on a tensor, bit for bit, with the amax
+    and the scale kept on ``x``'s device (nothing is read to the host):
+    (int8 q, the scale as a 0-d float64 tensor). The amax is exact, ``amax /
+    127`` is a division of float64 tensors (IEEE, as Python's), and each
+    element is divided by the scale's f32 rounding as a tensor operand
+    (CUDA's division by a host scalar multiplies by its reciprocal, which
+    can round differently), rounded half to even and clipped; a zero amax
+    divides the (zero) elements by 1."""
     x = x.to(torch.float32)
-    amax = float(x.abs().max()) if x.numel() else 0.0
-    scale = amax / 127.0
-    if scale == 0.0:
-        return torch.zeros(x.shape, dtype=torch.int8, device=x.device), 0.0
-    s = torch.tensor(scale, dtype=torch.float32, device=x.device)
+    if not x.numel():
+        return (torch.zeros(x.shape, dtype=torch.int8, device=x.device),
+                torch.zeros((), dtype=torch.float64, device=x.device))
+    scale = x.abs().amax().double() / torch.full((), 127.0, dtype=torch.float64, device=x.device)
+    s = scale.float()
+    s = torch.where(scale == 0, torch.ones_like(s), s)
     out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     step = max(1, _QUANT_CHUNK // max(1, x[0].numel())) if x.dim() > 1 else x.shape[0]
     for i in range(0, x.shape[0], step):
@@ -111,7 +115,8 @@ def quantize_global(x: Union[np.ndarray, torch.Tensor]):
     Numpy in, numpy out; a tensor in, a tensor on its device out. Both give
     the JAX package's ``q8`` and scale exactly."""
     if isinstance(x, torch.Tensor):
-        return _quantize_torch(x)
+        q, scale = quantize_on_device(x)
+        return q, float(scale)
     return _quantize_numpy(x)
 
 

@@ -35,8 +35,8 @@ from semtools_tpu_torch.utils.filelock import lock_exclusive, unlock
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
-SOURCES = ("fused_scan.cu", "int8_scan.cu", "int4_scan.cu", "select.cu", "stream.cu",
-           "probe_tilemax.cu")
+SOURCES = ("fused_scan.cu", "int8_scan.cu", "int4_scan.cu", "select.cu", "select_above.cu",
+           "stream.cu", "probe_tilemax.cu")
 HEADERS = ("common.cuh", "int_scan.cuh", "topk.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -47,7 +47,7 @@ NVCC_FLAGS = (
 KERNELS = (
     "fused_tilemax", "fused_rescan_topk", "fused_scan_candidates", "select_subtiles",
     "int8_tilemax", "int8_rescan_topk", "int8_tilemax_masked", "int8_rescan_topk_masked",
-    "int4_sims_max", "int4_sims_max_masked",
+    "int4_sims_max", "int4_sims_max_masked", "int4_cutoff_counts", "int4_extract_above",
     "int4_tilemax", "int4_rescan_topk", "int4_tilemax_masked", "int4_rescan_topk_masked",
     # the probes (ops/probes.py): the stream kernels, and the tile-max
     # kernel counted by variant (probes.VARIANTS)
@@ -184,6 +184,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.semtools_int4_sims_rows.argtypes = []
     lib.semtools_int4_sims_max.restype = i32
     lib.semtools_int4_sims_max.argtypes = [p, p, p, i32, i32, i64, p, p, i64, p]
+    lib.semtools_int4_cutoff_counts.restype = i32
+    lib.semtools_int4_cutoff_counts.argtypes = [p, p, i32, i64, p, i32, p, i32, p, i32, p, p, p,
+                                                p, p]
+    lib.semtools_int4_extract_above.restype = i32
+    lib.semtools_int4_extract_above.argtypes = [p, p, i32, i64, p, p, i32, i32, p, p, p]
     lib.semtools_stream_tiles.restype = i32
     lib.semtools_stream_tiles.argtypes = [p, i64, i64, i32, p, p]
     lib.semtools_stream_ring.restype = i32

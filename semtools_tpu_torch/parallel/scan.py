@@ -14,10 +14,11 @@ On a CUDA mesh each shard runs the kernels of its format: the fused f32 scan
 (``fused_tilemax``, ``select_subtiles``, ``fused_rescan_topk``) where
 :func:`_use_fused_local` says so, the int8 two-phase scan (``int8_tilemax``,
 ``select_subtiles``, ``int8_rescan_topk``) and the int4 deep-candidate sweep
-(``int4_sims_max[_masked]``), so each launches once per shard (and per 32
-queries). Masked top-k and the threshold scans are plain torch, as they are
-plain XLA in the JAX package. Results are tensors on the mesh's first
-device.
+(``int4_sims_max[_masked]``) with its selection (``select_subtiles``,
+``int4_cutoff_counts``, ``int4_extract_above``), so each launches once per
+shard (and per 32 queries). Masked top-k and the threshold scans are plain
+torch, as they are plain XLA in the JAX package. Results are tensors on the
+mesh's first device.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from semtools_tpu_torch.ops import fused_scan
-from semtools_tpu_torch.ops.fused_scan import MAX_QUERIES, SUB_ROWS, _sort_desc, merge_candidates
+from semtools_tpu_torch.ops.fused_scan import MAX_QUERIES, SUB_ROWS, merge_candidates
 from semtools_tpu_torch.parallel import multihost
 from semtools_tpu_torch.parallel.mesh import Mesh, ShardedRows, corpus_mesh, shard_corpus
 
@@ -207,64 +208,63 @@ def sharded_int4_deep_candidates_device(
     minus the noise margin is the cutoff (-3e38 when it is -inf), the
     per-query maximum over shards of the counts above it sizes the
     extraction, and each shard extracts its rows above it. The cutoff is the
-    single-device one, so the candidate set is too."""
+    single-device one, so the candidate set is too. On a card every step
+    after the sweeps is ``select_subtiles`` or a kernel of
+    ``csrc/select_above.cu``, and the counts' maxima are the one host read
+    (after ``multihost.all_max`` across processes)."""
     from semtools_tpu_torch.ops.int4_scan import (
-        SIMS_ROWS, _gather_blocks, cutoff_margin, extract_above, int4_candidate_cap, sims_max,
+        SIMS_ROWS, batch_maxima, block_tops, candidate_sizes, counts_above, margin_on_device,
+        select_above, sims_max, tops_cutoff,
     )
-    from semtools_tpu_torch.ops.int8_scan import quantize_global
+    from semtools_tpu_torch.ops.int8_scan import quantize_on_device
 
     mesh = mesh or p4.mesh
     dev = mesh.first
-    q8, _ = quantize_global(torch.as_tensor(q, dtype=torch.float32).to(dev))
-    q8 = q8.contiguous()
+    q8 = quantize_on_device(torch.as_tensor(q, dtype=torch.float32).to(dev))[0].contiguous()
     qn = q8.shape[0]
     if n_true == 0 or qn == 0:
         return torch.zeros((qn, 0), dtype=torch.int64, device=dev)
-    margin = cutoff_margin(q8, margin_sigmas)
-    shards = []  # (global row 0, real rows, sims, block maxima) of each shard with rows
+    margin = margin_on_device(q8, margin_sigmas)
+    held = {}  # global row 0 -> (real rows, sims, block maxima) of each shard with rows
     tops = []
     for j, (g0, lt) in enumerate(_local_trues(p4, n_true)):
-        top = torch.full((qn, k_cut), _NEG_INF, device=dev)
-        if lt:
-            shard, ddev = p4.shards[j], p4.shards[j].device
-            m = None if mask is None else mask.shards[j]
-            nb = -(-lt // SIMS_ROWS)
-            sims = torch.empty((qn, nb * SIMS_ROWS), dtype=torch.float32, device=ddev)
-            bmax = torch.empty((qn, nb), dtype=torch.float32, device=ddev)
-            qd = q8.to(ddev)
-            for c in range(0, qn, MAX_QUERIES):
-                sl = slice(c, c + MAX_QUERIES)
-                sims_max(qd[sl], shard, lt, m, out=(sims[sl], bmax[sl]))
-            cand = _gather_blocks(sims, _sort_desc(bmax, min(k_cut, nb))[1])
-            best = _sort_desc(cand, min(k_cut, cand.shape[1]))[0]
-            top[:, :best.shape[1]] = best
-            shards.append((g0, lt, sims, bmax))
-        tops.append(top)
-    t = _sort_desc(_gathered(tops, dev), k_cut)[0][:, -1]
-    cutoff = torch.where(torch.isfinite(t), t - torch.tensor(margin, device=dev),
-                         torch.full_like(t, -3e38))
+        if not lt:
+            tops.append(torch.full((qn, k_cut), _NEG_INF, device=dev))
+            continue
+        shard, ddev = p4.shards[j], p4.shards[j].device
+        m = None if mask is None else mask.shards[j]
+        nb = -(-lt // SIMS_ROWS)
+        sims = torch.empty((qn, nb * SIMS_ROWS), dtype=torch.float32, device=ddev)
+        bmax = torch.empty((qn, nb), dtype=torch.float32, device=ddev)
+        qd = q8.to(ddev)
+        for c in range(0, qn, MAX_QUERIES):
+            sl = slice(c, c + MAX_QUERIES)
+            sims_max(qd[sl], shard, lt, m, out=(sims[sl], bmax[sl]))
+        tops.append(block_tops(sims, bmax, k_cut))
+        held[g0] = (lt, sims, bmax)
+    cutoff = tops_cutoff(_gathered(tops, dev), margin, k_cut)
     count = torch.zeros(qn, dtype=torch.int64, device=dev)
     n_blocks = torch.zeros(qn, dtype=torch.int64, device=dev)
-    for _, _, sims, bmax in shards:
-        c = cutoff.to(sims.device)[:, None]
-        count = torch.maximum(count, (sims >= c).sum(dim=1).to(dev))
-        n_blocks = torch.maximum(n_blocks, (bmax >= c).sum(dim=1).to(dev))
-    count, n_blocks = multihost.all_max(count), multihost.all_max(n_blocks)
-    max_count, max_nb = int(count.max()), int(n_blocks.max())
+    shard_counts = {}
+    for g0, (_, sims, bmax) in held.items():
+        shard_counts[g0], shard_blocks = counts_above(sims, bmax, cutoff.to(sims.device))
+        count = torch.maximum(count, shard_counts[g0].to(dev))
+        n_blocks = torch.maximum(n_blocks, shard_blocks.to(dev))
+    max_count, max_nb = batch_maxima(multihost.all_max(count), multihost.all_max(n_blocks))
     if max_count == 0:
         return torch.zeros((qn, 0), dtype=torch.int64, device=dev)
     n_local = p4.n_local
-    cap = min(1 << max((max_count - 1).bit_length(), 4), int4_candidate_cap(n_true), n_local)
-    n_b = min(1 << max((max_nb - 1).bit_length(), 2), -(-n_local // SIMS_ROWS))
+    cap, n_b = candidate_sizes(max_count, max_nb, n_true, -(-n_local // SIMS_ROWS))
+    cap = min(cap, n_local)
     sentinel = n_local * mesh.size
-    held = {g0: (lt, sims, bmax) for g0, lt, sims, bmax in shards}
     ids = []
     for g0, _ in _local_trues(p4, n_true):
         if g0 not in held:
             ids.append(torch.full((qn, cap), sentinel, dtype=torch.int64, device=dev))
             continue
         lt, sims, bmax = held[g0]
-        loc = extract_above(sims, bmax, cutoff.to(sims.device), n_b=n_b, cap=cap)
+        loc = select_above(sims, bmax, cutoff.to(sims.device), shard_counts[g0], n_b=n_b,
+                           cap=cap)
         ids.append(torch.where(loc < lt, loc + g0, sentinel))
     return _gathered(ids, dev)
 

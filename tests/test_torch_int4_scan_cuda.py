@@ -141,3 +141,120 @@ def test_wrappers_refuse_what_the_kernels_cannot_take(cuda_device):
         i4.tilemax(torch.zeros((1, 48), dtype=torch.int8, device=cuda_device),
                    torch.zeros((600, 24), dtype=torch.int8, device=cuda_device), 600)
     np.testing.assert_equal(kernels.library().semtools_int4_sims_rows(), i4.SIMS_ROWS)
+
+
+def _sweep(q8, p4, n_true, mask):
+    from semtools_tpu_torch.ops.fused_scan import MAX_QUERIES
+
+    nb = -(-n_true // i4.SIMS_ROWS)
+    sims = torch.empty((q8.shape[0], nb * i4.SIMS_ROWS), device=p4.device)
+    bmax = torch.empty((q8.shape[0], nb), device=p4.device)
+    for q0 in range(0, q8.shape[0], MAX_QUERIES):
+        sl = slice(q0, q0 + MAX_QUERIES)
+        i4.sims_max(q8[sl].contiguous(), p4, n_true, mask, out=(sims[sl], bmax[sl]))
+    return sims, bmax
+
+
+def _same_sets(got, want, n):
+    assert got.shape == want.shape
+    for g, w in zip(got.cpu(), want.cpu()):
+        assert torch.equal(g[g < n].sort().values, w[w < n].sort().values)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_kind", [None, "random", "few"])
+@pytest.mark.parametrize("qn,k_cut,cap", [(1, 10, None), (8, 10, 6), (40, 30, 3), (3, 12, 1)])
+def test_selection_kernels_match_plain_versions(cuda_device, qn, k_cut, cap, mask_kind):
+    """int4_cutoff_counts (every mode) and int4_extract_above against their
+    plain versions on the same sweep: cutoffs bit-equal, counts equal, the
+    same candidate sets under the cap and past it (query 0's seven equal
+    rows straddle it), the same tensor from a second call."""
+    gen = torch.Generator().manual_seed(qn * k_cut)
+    n, n_true = 6000, 5900
+    q8, p4 = _data(gen, n, qn, cuda_device)
+    mask = _mask(mask_kind, n, gen, cuda_device)
+    sims, bmax = _sweep(q8, p4, n_true, mask)
+    margin = i4.margin_on_device(q8)
+    assert margin.item() == float(i4.cutoff_margin(q8))
+    before = kernels.launch_counts()
+    cutoff, count, n_blocks = i4.select_cutoff(sims, bmax, margin, k_cut)
+    want_c, want_n, want_b = i4.cutoff_counts(sims, bmax, margin, k_cut)
+    assert torch.equal(cutoff.view(torch.int32), want_c.view(torch.int32))
+    assert torch.equal(count, want_n) and torch.equal(n_blocks, want_b)
+    max_count, max_nb = i4.batch_maxima(count, n_blocks)
+    size, n_b = i4.candidate_sizes(max_count, max_nb, n_true, bmax.shape[1])
+    for c in (size, cap or size):
+        got = i4.select_above(sims, bmax, cutoff, count, n_b=n_b, cap=c)
+        _same_sets(got, i4.extract_above(sims, bmax, cutoff, n_b=n_b, cap=c), n_true)
+        assert torch.equal(got, i4.select_above(sims, bmax, cutoff, count, n_b=n_b, cap=c))
+    tops = i4.block_tops(sims, bmax, k_cut)
+    assert torch.equal(tops.sort(dim=1, descending=True).values,
+                       i4.block_tops_reference(sims, bmax, k_cut))
+    merged = torch.cat([tops, tops.flip(0)], dim=1)
+    assert torch.equal(i4.tops_cutoff(merged, margin, k_cut),
+                       i4.tops_cutoff_reference(merged, margin, k_cut))
+    got_n, got_b = i4.counts_above(sims, bmax, want_c)
+    assert torch.equal(got_n, want_n) and torch.equal(got_b, want_b)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["int4_cutoff_counts"] == before["int4_cutoff_counts"] + 4
+    assert after["int4_extract_above"] == before["int4_extract_above"] + 4
+
+
+@pytest.mark.cuda
+def test_quantization_and_margin_stay_on_the_card(cuda_device):
+    """The device quantization and margin equal the numpy ones bit for bit
+    on the card, and a deep-candidate call with its queries on the card
+    synchronises once (the counts' maxima) and sorts nothing."""
+    from semtools_tpu_torch.ops import int8_scan as i8
+
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn((8, 256), generator=gen)
+    q[5] = 0.0
+    q8, scale = i8.quantize_on_device(q.to(cuda_device))
+    want, want_scale = i8.quantize_global(q.numpy())
+    assert torch.equal(q8.cpu(), torch.from_numpy(want)) and scale.item() == want_scale
+    assert i4.margin_on_device(q8).item() == float(i4.cutoff_margin(q8))
+    _, p4 = _data(gen, 20000, 1, cuda_device)
+    q = q.to(cuda_device)
+    i4.int4_deep_candidates(q, p4)
+    torch.cuda.synchronize()
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            i4.int4_deep_candidates(q, p4)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_sharded_selection_on_four_shards(cuda_device, monkeypatch, masked):
+    """The sharded twin on 4 shards of the card gives the single device's
+    sets, each shard running the selection kernels."""
+    from semtools_tpu_torch.parallel import mesh as torch_mesh
+    from semtools_tpu_torch.parallel import scan as sh
+
+    monkeypatch.setenv(torch_mesh.VIRTUAL_ENV, "4")
+    monkeypatch.setattr(torch_mesh, "_VIRTUAL", None)
+    gen = torch.Generator().manual_seed(11)
+    n = 9000
+    q8, p4 = _data(gen, n, 8, cuda_device)
+    mesh = torch_mesh.corpus_mesh(4, "cuda")
+    p4s, _ = torch_mesh.shard_corpus(p4, mesh, fill=i4.PACKED_ZERO_BYTE)
+    mask = _mask("random", n, gen, cuda_device) if masked else None
+    ms = None if mask is None else torch_mesh.shard_rows(mask, mesh)
+    before = kernels.launch_counts()
+    ids = sh.sharded_int4_deep_candidates_device(q8.float(), p4s, n, mask=ms)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["int4_extract_above"] - before["int4_extract_above"] == 4
+    assert after["int4_cutoff_counts"] - before["int4_cutoff_counts"] == 9  # 4 tops, 1 merge, 4 counts
+    want = i4.int4_deep_candidates(q8.float(), p4, mask=mask)
+    for g, w in zip(ids.cpu(), want.cpu()):
+        assert set(g[g < n].tolist()) == set(w[w < n].tolist())
