@@ -42,8 +42,10 @@ exits non-zero without them. Phases:
    kernels (``csrc/select_above.cu``: ``int4_cutoff_counts`` in each of its
    modes, ``int4_extract_above`` at the batch's cap and past the cap) against
    their plain versions on the same sweep: the margin on the card and the
-   cutoffs bit-equal, the counts equal, the candidate sets equal (a second
-   call gives the same tensor); query 1 is a row copied into one row of every
+   cutoffs bit-equal, the counts and the count pass's marks (per-block
+   counts, group totals, the hit blocks' masks) equal, the candidate sets
+   equal, under the cap row for row the rows the marks give (a second call
+   gives the same tensor); query 1 is a row copied into one row of every
    1,500 (its candidates alone span 1,333 / 6,666 blocks: n_b >= 1024); the
    deep candidates of the kernel path equal those of the plain sweep through
    the plain selection, also past the candidate cap
@@ -54,9 +56,13 @@ exits non-zero without them. Phases:
    path) against the plain phases, and times as in phase 2 at N = 10M, Q =
    8, k = 10; ``int4_deep_candidates`` also against the sweep kernel plus
    the plain selection (and with the dense query), and one call of it,
-   plain and masked, must make exactly one synchronising read
-   (``torch.cuda.set_sync_debug_mode("warn")``) and launch no sort or top-k
-   kernel (its profiler listing);
+   plain and masked, and past the cap, must make exactly one synchronising
+   read (``torch.cuda.set_sync_debug_mode("warn")``) and launch no sort or
+   top-k kernel; after the sweep its profiler listing must hold exactly
+   ``select_subtiles``, the cutoff and count kernels (the one pass over the
+   hit blocks' sims) and, under the cap, the one write kernel (past it the
+   write kernel listing every marked row, then the rule kernel), logged as
+   the call's launches; the extraction past the cap is timed too;
 5. probes (``semtools_tpu_torch/probes``, kernels ``csrc/stream.cu`` and
    ``csrc/probe_tilemax.cu``): every tile-max variant (masked and not; a
    whole-tile max, 512-row sub-tiles, full sims) and the stream kernels
@@ -229,9 +235,13 @@ REPLACES = {
 SOURCES = {"fused": FUSED_SOURCE, "int8": INT8_SOURCE, "int4": INT4_SOURCE,
            "select": SELECT_SOURCE}
 SELECTION = ("int4_cutoff_counts", "int4_extract_above")  # csrc/select_above.cu
-# the device kernels int4_extract_above launches
-EXTRACT_KERNELS = ("int4_rule_kernel", "int4_block_counts_kernel", "int4_offsets_kernel",
-                   "int4_write_kernel")
+# the device kernels of the selection after the sweep: select.cu's, then
+# csrc/select_above.cu's (int4_cutoff_counts', then int4_extract_above's under
+# the cap and past it)
+CUTOFF_KERNELS = ("select_kernel", "int4_cutoff_kernel", "int4_count_kernel")
+EXTRACT_KERNELS = ("int4_write_kernel",)
+PAST_CAP_KERNELS = ("int4_write_kernel", "int4_rule_kernel")
+SELECTION_KERNELS = CUTOFF_KERNELS + PAST_CAP_KERNELS
 K5 = ("int4_tilemax", "select_subtiles", "int4_rescan_topk", "int4_tilemax_masked",
       "int4_rescan_topk_masked")
 K6 = ("int4_sims_max", "int4_sims_max_masked")
@@ -782,17 +792,27 @@ def check_selection(q8, sims, bmax, n_true, what):
     if not bits_equal(margin, plain_margin):
         raise AssertionError(f"{what}: margin {margin.item()} on the card, {plain_margin.item()} "
                              f"in numpy")
-    cutoff, count, n_blocks = i4.select_cutoff(sims, bmax, margin, k_cut)
+    cutoff, count, n_blocks, marks = i4.select_cutoff(sims, bmax, margin, k_cut)
     want_c, want_n, want_b = i4.cutoff_counts(sims, bmax, plain_margin, k_cut)
     if not (bits_equal(cutoff, want_c) and torch.equal(count, want_n)
             and torch.equal(n_blocks, want_b)):
         raise AssertionError(f"{what}: int4_cutoff_counts differs from cutoff_counts")
-    cap, n_b = i4.candidate_sizes(*i4.batch_maxima(count, n_blocks), n_true, bmax.shape[1])
+    same_marks(f"{what}: int4_cutoff_counts' marks", marks, i4.marks_reference(sims, bmax, want_c))
+    max_count, max_nb = i4.batch_maxima(count, n_blocks)
+    cap, n_b = i4.candidate_sizes(max_count, max_nb, n_true, bmax.shape[1])
     for c in (cap, min(cap, int(OVER_CAP))):
-        got = i4.select_above(sims, bmax, cutoff, count, n_b=n_b, cap=c)
+        def extract():
+            return i4.select_above(sims, bmax, cutoff, count, marks, n_b=n_b, cap=c,
+                                   max_count=max_count)
+
+        got = extract()
         same_candidates(f"{what}: int4_extract_above (cap {c})", got,
                         i4.extract_above(sims, bmax, want_c, n_b=n_b, cap=c), n_true)
-        if not torch.equal(got, i4.select_above(sims, bmax, cutoff, count, n_b=n_b, cap=c)):
+        under = count <= c
+        if not torch.equal(got[under], i4.marked_rows_reference(marks, c)[under]):
+            raise AssertionError(f"{what}: int4_extract_above (cap {c}) is not the marked rows "
+                                 f"in row order")
+        if not torch.equal(got, extract()):
             raise AssertionError(f"{what}: int4_extract_above (cap {c}) is not deterministic")
     tops = i4.block_tops(sims, bmax, k_cut)
     if not torch.equal(tops.sort(dim=1, descending=True).values,
@@ -802,10 +822,22 @@ def check_selection(q8, sims, bmax, n_true, what):
     if not bits_equal(i4.tops_cutoff(merged, margin, k_cut),
                       i4.tops_cutoff_reference(merged, plain_margin, k_cut)):
         raise AssertionError(f"{what}: the cutoff of merged tops differs from the plain one")
-    got_n, got_b = i4.counts_above(sims, bmax, want_c)
+    got_n, got_b, got_marks = i4.counts_above(sims, bmax, want_c)
     if not (torch.equal(got_n, want_n) and torch.equal(got_b, want_b)):
         raise AssertionError(f"{what}: the counts against a given cutoff differ")
+    same_marks(f"{what}: the marks against a given cutoff", got_marks, marks)
     return n_b, cap
+
+
+def same_marks(what, got, want) -> None:
+    """Equal per-block counts and group totals, and equal masks wherever a
+    block has a count (the count pass writes no other)."""
+    import torch
+
+    hit = want.counts > 0
+    if not (torch.equal(got.counts, want.counts) and torch.equal(got.groups, want.groups)
+            and torch.equal(got.masks[hit], want.masks[hit])):
+        raise AssertionError(f"{what} differ from marks_reference")
 
 
 def int4_kernel_phase():
@@ -877,18 +909,25 @@ def int4_kernel_phase():
 OVER_CAP = "4"  # candidates kept per query when the cap binds (SEMTOOLS_TPU_INT4_CAP)
 
 
+@contextlib.contextmanager
+def past_the_cap():
+    """SEMTOOLS_TPU_INT4_CAP = OVER_CAP inside the block: the cap binds."""
+    os.environ["SEMTOOLS_TPU_INT4_CAP"] = OVER_CAP
+    try:
+        yield
+    finally:
+        os.environ.pop("SEMTOOLS_TPU_INT4_CAP")
+
+
 def check_over_cap(q, q8, p4, n_true, mask, ref_sims, ref_max):
     """Past the cap the tie rule alone decides: the kernel path keeps the same
     rows as the plain one; query 0 keeps the first 4 of its 7 equal rows."""
     from semtools_tpu_torch.ops import int4_scan as i4
 
-    os.environ["SEMTOOLS_TPU_INT4_CAP"] = OVER_CAP
-    try:
+    with past_the_cap():
         cand = i4.int4_deep_candidates(q, p4, n_true=n_true, mask=mask)
         same_candidates("deep candidates over the cap", cand,
                         i4.select_candidates_reference(q8, ref_sims, ref_max, n_true), n_true)
-    finally:
-        os.environ.pop("SEMTOOLS_TPU_INT4_CAP")
     if cand.shape[1] != int(OVER_CAP):
         raise AssertionError(f"over the cap: {cand.shape[1]} candidates per query")
     if mask is None and sorted(cand[0].tolist()) != [5, 127, 128, 511]:
@@ -996,6 +1035,14 @@ def time_int4_kernels(p4, n_true, gen):
             f" ms ({CARD})")
         selection_path(f"int4_deep_candidates{sfx}",
                        lambda: i4.int4_deep_candidates(q, p4, n_true=n_true, mask=m))
+    with past_the_cap():
+        past = {"ms": cuda_ms(lambda: i4.int4_deep_candidates(q, p4, n_true=n_true)),
+                "device_ms": device_ms(lambda: i4.int4_deep_candidates(q, p4, n_true=n_true))}
+        selection_path(f"int4_deep_candidates past the cap ({OVER_CAP})",
+                       lambda: i4.int4_deep_candidates(q, p4, n_true=n_true),
+                       {k: 1 for k in CUTOFF_KERNELS + PAST_CAP_KERNELS})
+    log(f"time: int4_deep_candidates N={p4.shape[0]} Q={qn} past the cap ({OVER_CAP}): "
+        f"{past['ms']:.4f} ms events / {past['device_ms']:.4f} ms device ({CARD})")
     busy, wall, ops = device_busy(lambda: i4.int4_deep_candidates(q, p4, n_true=n_true), top=8)
     log(f"time: int4_deep_candidates N={p4.shape[0]} Q={qn} under torch.profiler: device busy "
         f"{busy:.3f} ms of {wall:.3f} ms wall; by kernel: "
@@ -1036,7 +1083,9 @@ def time_selection(q8, p4, n_true) -> dict:
     includes its ``select_subtiles`` launch), the kernels' device time, the
     plain versions' events time, the bound from the bytes this run's
     counts make them move and, for the cutoff, one ``torch.topk`` of the
-    k_cut best sims."""
+    k_cut best sims. Also the pair's device time against their shared
+    bound (the hit blocks' sims read once) and the extraction past the cap
+    (``SEMTOOLS_TPU_INT4_CAP`` = OVER_CAP, far below the counts) by kernel."""
     import torch
 
     from semtools_tpu_torch.ops import int4_scan as i4
@@ -1045,44 +1094,75 @@ def time_selection(q8, p4, n_true) -> dict:
     sims, bmax = i4.sims_max(q8, p4, n_true)
     nb = bmax.shape[1]
     margin = i4.margin_on_device(q8)
-    cutoff, count, n_blocks = i4.select_cutoff(sims, bmax, margin, k_cut)
-    cap, n_b = i4.candidate_sizes(*i4.batch_maxima(count, n_blocks), n_true, nb)
-    hit_bytes = int(n_blocks.sum()) * i4.SIMS_ROWS * 4  # the sims of the blocks at or above
+    cutoff, count, n_blocks, marks = i4.select_cutoff(sims, bmax, margin, k_cut)
+    max_count, max_nb = i4.batch_maxima(count, n_blocks)
+    cap, n_b = i4.candidate_sizes(max_count, max_nb, n_true, nb)
+    with past_the_cap():
+        past_cap = i4.candidate_sizes(max_count, max_nb, n_true, nb)[0]
+    hits, rows = int(n_blocks.sum()), int(count.sum())
+    hit_bytes = hits * i4.SIMS_ROWS * 4  # the sims of the blocks at or above the cutoffs
+    # the marks: per-block counts, group totals, the hit blocks' masks
+    marks_bytes = qn * nb * 4 + marks.groups.numel() * 4 + hits * i4.MASK_WORDS * 4
     kb = min(k_cut, nb)
+    before_count = qn * nb * 4 + qn * kb * (i4.SIMS_ROWS * 4 + 8) + qn * 4 + 4
+
+    def extract(c):
+        return lambda: i4.select_above(sims, bmax, cutoff, count, marks, n_b=n_b, cap=c,
+                                       max_count=max_count)
+
     t = {"int4_cutoff_counts": {
         "ms": cuda_ms(lambda: i4.select_cutoff(sims, bmax, margin, k_cut)),
         "device_ms": kernel_device_ms(lambda: i4.select_cutoff(sims, bmax, margin, k_cut),
-                                      ("int4_cutoff_kernel", "int4_count_kernel")),
+                                      CUTOFF_KERNELS[1:]),
         "plain_ms": cuda_ms(lambda: i4.cutoff_counts(sims, bmax, margin, k_cut)),
         "library_ms": cuda_ms(lambda: torch.topk(sims, k_cut))}}
     t["int4_cutoff_counts"].update(zip(("bound_ms", "bound_by"), bound(
-        qn * nb * 4 + qn * kb * (i4.SIMS_ROWS * 4 + 8) + hit_bytes + qn * 20 + 4,
-        float(qn * kb * i4.SIMS_ROWS * 4 + qn * nb), "f32")))
+        before_count + hit_bytes + qn * 16 + marks_bytes,
+        float(qn * kb * i4.SIMS_ROWS * 4 + qn * nb + hits * i4.SIMS_ROWS), "f32")))
     t["int4_extract_above"] = {
-        "ms": cuda_ms(lambda: i4.select_above(sims, bmax, cutoff, count, n_b=n_b, cap=cap)),
-        "device_ms": kernel_device_ms(
-            lambda: i4.select_above(sims, bmax, cutoff, count, n_b=n_b, cap=cap),
-            EXTRACT_KERNELS),
+        "ms": cuda_ms(extract(cap)),
+        "device_ms": kernel_device_ms(extract(cap), EXTRACT_KERNELS),
         "plain_ms": cuda_ms(lambda: i4.extract_above(sims, bmax, cutoff, n_b=n_b, cap=cap)),
         "library_ms": None}
     t["int4_extract_above"].update(zip(("bound_ms", "bound_by"), bound(
-        qn * nb * 4 + hit_bytes + qn * 12 + qn * cap * 8, float(qn * nb + hit_bytes // 4),
-        "f32")))
-    log(f"time: the selection at N={p4.shape[0]} Q={qn}: {int(n_blocks.sum())} blocks at or "
-        f"above the cutoffs (n_b {n_b}), {int(count.sum())} rows (cap {cap}); select_cutoff "
-        f"device time in all (select_subtiles, memsets, both kernels) "
-        f"{device_ms(lambda: i4.select_cutoff(sims, bmax, margin, k_cut)):.4f} ms")
+        marks_bytes + qn * 8 + qn * cap * 8, float(qn * nb), "f32")))
+    pair_bound = bound(before_count + hit_bytes + qn * cap * 8,
+                       float(qn * kb * i4.SIMS_ROWS * 4 + qn * nb + hits * i4.SIMS_ROWS), "f32")
+    pair = t["int4_cutoff_counts"]["device_ms"] + t["int4_extract_above"]["device_ms"]
+    past = {name: kernel_device_ms(extract(past_cap), (name,)) for name in PAST_CAP_KERNELS}
+    past_bound = bound(marks_bytes + rows * 4 + qn * 8 + qn * past_cap * 8,
+                       float(qn * nb + 12 * rows), "f32")
+    log(f"time: the selection at N={p4.shape[0]} Q={qn}: {hits} blocks at or above the cutoffs "
+        f"(n_b {n_b}), {rows} rows (cap {cap}); select_cutoff device time in all "
+        f"(select_subtiles and both kernels) "
+        f"{device_ms(lambda: i4.select_cutoff(sims, bmax, margin, k_cut)):.4f} ms ({CARD})")
+    log(f"time: int4_cutoff_counts + int4_extract_above under the cap: {pair:.4f} ms device "
+        f"against their shared bound {pair_bound[0]:.4f} ms ({pair_bound[1]}: the maxima, the "
+        f"cutoff's blocks and the {hit_bytes / 1e6:.1f} MB of hit blocks read once, the "
+        f"[{qn}, {cap}] rows written) = {pair_bound[0] / pair:.1%} ({CARD})")
+    past_ms = (cuda_ms(extract(past_cap)), kernel_device_ms(extract(past_cap), PAST_CAP_KERNELS),
+               cuda_ms(lambda: i4.extract_above(sims, bmax, cutoff, n_b=n_b, cap=past_cap),
+                       reps=5))
+    log(f"time: int4_extract_above past the cap (cap {past_cap}, every query past it): "
+        f"{past_ms[0]:.4f} ms events / {past_ms[1]:.4f} ms device ("
+        + ", ".join(f"{n} {ms:.4f}" for n, ms in past.items())
+        + f"), plain {past_ms[2]:.4f} ms, bound {past_bound[0]:.4f} ms ({past_bound[1]}: the "
+        f"marks and the {rows} marked rows' sims) ({CARD})")
     return t
 
 
-def selection_path(what, fn) -> None:
+def selection_path(what, fn, expect=None) -> None:
     """One call of ``fn`` makes one synchronising read (the counts' maxima),
-    under ``torch.cuda.set_sync_debug_mode("warn")``, and its profiler
-    listing holds no sort or top-k kernel."""
+    under ``torch.cuda.set_sync_debug_mode("warn")``; its profiler listing
+    holds no sort or top-k kernel, and its selection kernels are exactly
+    ``expect`` (by name, with their counts; default one deep-candidate call
+    under the cap: select_subtiles, the cutoff and count kernels, the write
+    kernel)."""
     import warnings
 
     import torch
 
+    expect = expect or {k: 1 for k in CUTOFF_KERNELS + EXTRACT_KERNELS}
     fn()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
@@ -1097,12 +1177,19 @@ def selection_path(what, fn) -> None:
     if len(syncs) != 1:
         raise AssertionError(f"{what}: {len(syncs)} synchronising calls, want 1: {syncs}")
     events, _ = traced(fn, want="int4_write_kernel")
-    names = sorted({e.name for e in events})
-    sorts = [n for n in names if "sort" in n.lower() or "topk" in n.lower()]
-    if sorts or not all(any(k in n for n in names) for k in EXTRACT_KERNELS):
-        raise AssertionError(f"{what}: device work {names}")
-    log(f"{what}: one synchronising read a call; {len(events)} device ops, no sort: "
-        + ", ".join(n[:40] for n in names))
+    names = [e.name for e in events]
+    sorts = sorted({n for n in names if "sort" in n.lower() or "topk" in n.lower()})
+    got = {k: sum(k in n for n in names) for k in SELECTION_KERNELS}
+    got = {k: c for k, c in got.items() if c}
+    if sorts or got != expect:
+        raise AssertionError(f"{what}: selection kernels {got}, want {expect}; device work "
+                             f"{sorted(set(names))}")
+    last = max(i for i, n in enumerate(names) if "sweep_kernel" in n)
+    after = [next((k for k in SELECTION_KERNELS if k in n),
+                  n.split()[0] if n.startswith("Mem") else "torch") for n in names[last + 1:]]
+    log(f"{what}: one synchronising read a call; {len(events)} device ops, no sort; launches a "
+        f"call: " + ", ".join(f"{k} {c}" for k, c in got.items()) + "; device ops after the "
+        "last sweep: " + ", ".join(after))
 
 
 # The probes (semtools_tpu_torch/probes, ops/probes.py): each launch counter
@@ -2664,7 +2751,9 @@ def sharded_kernel_steps(mesh):
         if selection != {"int4_cutoff_counts": 2 * SHARDS + 1, "int4_extract_above": SHARDS}:
             raise AssertionError(f"sharded {name}: selection launches {selection}")
         selection_path(f"sharded {name} deep candidates",
-                       lambda: sh.sharded_int4_deep_candidates_device(q, p4s, n_true, mask=ms))
+                       lambda: sh.sharded_int4_deep_candidates_device(q, p4s, n_true, mask=ms),
+                       {"select_kernel": SHARDS, "int4_cutoff_kernel": SHARDS + 1,
+                        "int4_count_kernel": SHARDS, "int4_write_kernel": SHARDS})
         want = i4.int4_deep_candidates(q, p4, n_true=n_true, mask=mask)
         for r in range(qn):
             got_r, want_r = ids[r][ids[r] < n_true], want[r][want[r] < n_true]
@@ -2675,9 +2764,65 @@ def sharded_kernel_steps(mesh):
         times(f"{name} deep candidates, {n_true} x {D // 2} B, Q {qn}",
               lambda: i4.int4_deep_candidates(q, p4, n_true=n_true, mask=mask),
               lambda: sh.sharded_int4_deep_candidates_device(q, p4s, n_true, mask=ms))
-    log("sharded: int4 deep-candidate sets equal the single device's, plain and masked; "
-        "K6 and int4_extract_above launched once per shard, int4_cutoff_counts twice and once "
-        "for the merge")
+        with past_the_cap():
+            past = sh.sharded_int4_deep_candidates_device(q, p4s, n_true, mask=ms)
+            want = plain_sharded_candidates(q, p4s, n_true, ms)
+            selection_path(f"sharded {name} deep candidates past the cap ({OVER_CAP})",
+                           lambda: sh.sharded_int4_deep_candidates_device(q, p4s, n_true, mask=ms),
+                           {"select_kernel": SHARDS, "int4_cutoff_kernel": SHARDS + 1,
+                            "int4_count_kernel": SHARDS, "int4_write_kernel": SHARDS,
+                            "int4_rule_kernel": SHARDS})
+        if past.shape != want.shape:
+            raise AssertionError(f"sharded {name} past the cap: {tuple(past.shape)} candidates, "
+                                 f"the plain twin {tuple(want.shape)}")
+        for r in range(qn):
+            got_r, want_r = past[r][past[r] < n_true], want[r][want[r] < n_true]
+            if not torch.equal(got_r.sort().values, want_r.sort().values):
+                raise AssertionError(f"sharded {name} past the cap: query {r}'s candidate set "
+                                     f"differs from the plain twin's")
+    log("sharded: int4 deep-candidate sets equal the single device's, plain and masked, and "
+        f"past the cap ({OVER_CAP}) the plain twin's; K6 and int4_extract_above launched once "
+        "per shard, int4_cutoff_counts twice and once for the merge")
+
+
+def plain_sharded_candidates(q, p4s, n_true, ms, k_cut: int = 10):
+    """``sharded_int4_deep_candidates_device`` composed of the plain versions
+    on the card (each shard's sweep, tops, counts and extraction, the cutoff
+    of the merged tops), in its [Q, shards * cap] layout."""
+    import torch
+
+    from semtools_tpu_torch.ops import int4_scan as i4
+    from semtools_tpu_torch.ops.int8_scan import quantize_on_device
+    from semtools_tpu_torch.parallel import scan as sh
+
+    q8 = quantize_on_device(q)[0].contiguous()
+    qn = q8.shape[0]
+    margin = torch.tensor(i4.cutoff_margin(q8), device=q8.device)
+    held, tops = {}, []
+    for j, (g0, lt) in enumerate(sh._local_trues(p4s, n_true)):
+        if not lt:
+            tops.append(torch.full((qn, k_cut), float("-inf"), device=q8.device))
+            continue
+        sims, bmax = i4.sims_max_reference(q8, p4s.shards[j], lt,
+                                           None if ms is None else ms.shards[j])
+        tops.append(i4.block_tops_reference(sims, bmax, k_cut))
+        held[g0] = (lt, sims, bmax)
+    cutoff = i4.tops_cutoff_reference(torch.cat(tops, dim=1), margin, k_cut)
+    counts = [i4.counts_above_reference(sims, bmax, cutoff) for _, sims, bmax in held.values()]
+    max_count = max(int(c.max()) for c, _ in counts)
+    max_nb = max(int(b.max()) for _, b in counts)
+    cap, n_b = i4.candidate_sizes(max_count, max_nb, n_true, -(-p4s.n_local // i4.SIMS_ROWS))
+    cap = min(cap, p4s.n_local)
+    sentinel = p4s.n_local * p4s.mesh.size
+    ids = []
+    for g0, _ in sh._local_trues(p4s, n_true):
+        if g0 not in held:
+            ids.append(torch.full((qn, cap), sentinel, dtype=torch.int64, device=q8.device))
+            continue
+        lt, sims, bmax = held[g0]
+        loc = i4.extract_above(sims, bmax, cutoff, n_b=n_b, cap=cap)
+        ids.append(torch.where(loc < lt, loc + g0, sentinel))
+    return torch.cat(ids, dim=1)
 
 
 def sharded_workspace_steps(args):

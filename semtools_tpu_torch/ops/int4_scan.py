@@ -22,12 +22,16 @@ Two selection paths share the packed corpus:
   ``int4_sims_max[_masked]``, replacing ``_sims_max_kernel[_masked]``): one
   sweep writes every row's sim and every 512-row block's max, then
   :func:`select_cutoff` takes each query's exact ``k_cut``-th best minus a
-  noise margin and counts the rows at or above it, and
-  :func:`select_above` returns them, up to a cap (``select_subtiles`` and
+  noise margin, counts the rows at or above it and marks them (each
+  block's count and row mask, :class:`Marks`), and :func:`select_above`
+  returns them, up to a cap, from the marks alone (``select_subtiles`` and
   the kernels ``int4_cutoff_counts`` and ``int4_extract_above`` of
   ``csrc/select_above.cu``, replacing the XLA of ``_int4_cutoff_counts`` and
-  ``_extract_above``; their plain versions :func:`cutoff_counts` and
-  :func:`extract_above`), with one host read between them;
+  ``_extract_above``; their plain versions :func:`cutoff_counts`,
+  :func:`marks_reference`, :func:`marked_rows_reference` and
+  :func:`extract_above`), with one host read between them: the sims after
+  the sweep are read once, by the count, unless a query is past the cap,
+  whose selection then reads the rows its mask marks;
 - :func:`int4_topk_scan` (exact top-k over the quantized sims; kernels
   ``int4_tilemax``, ``select_subtiles`` and ``int4_rescan_topk``, and the
   masked variants, replacing K5a-d and the XLA steps between and after
@@ -42,7 +46,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -80,6 +84,10 @@ PACKED_ZERO_BYTE = 8
 # extraction ranks these blocks by their max, so the same block size gives
 # the same candidate set when a query has more candidates than the cap.
 SIMS_ROWS = 512
+# Blocks of SIMS_ROWS rows whose counts the selection's count pass sums into
+# one group total (one thread a block), and 32-bit words of a block's mask.
+MARK_GROUP = 256
+MASK_WORDS = SIMS_ROWS // 32
 
 _NEG_INF = float("-inf")
 _QUANT_CHUNK_ELEMS = 1 << 24  # bounds quantize temporaries to ~64 MB f32
@@ -269,6 +277,45 @@ def counts_above_reference(sims, block_max, cutoff):
     return (sims >= cutoff[:, None]).sum(dim=1), (block_max >= cutoff[:, None]).sum(dim=1)
 
 
+class Marks(NamedTuple):
+    """What the selection's count pass hands the extraction: per query, each
+    block's rows at or above the cutoff. ``counts`` [Q, nb] int32, the rows
+    of each block; ``groups`` [Q, ceil(nb / MARK_GROUP)] int32, their sums
+    over each MARK_GROUP blocks; ``masks`` [Q, nb, MASK_WORDS] int32, bit j
+    of word w set where row 32 w + j of the block is one of them (on a card
+    written only for blocks with a count: read nothing else)."""
+
+    counts: torch.Tensor
+    groups: torch.Tensor
+    masks: torch.Tensor
+
+
+def marks_reference(sims, block_max, cutoff) -> Marks:
+    """The :class:`Marks` of each query's rows at or above its cutoff (a
+    block holds one only where its max is at or above it)."""
+    qn, nb = block_max.shape
+    above = (sims >= cutoff[:, None]).view(qn, nb, MASK_WORDS, 32)
+    bit = torch.ones((), dtype=torch.int32, device=sims.device) << torch.arange(
+        32, dtype=torch.int32, device=sims.device)
+    counts = above.sum(dim=(2, 3), dtype=torch.int32)
+    groups = F.pad(counts, (0, -nb % MARK_GROUP)).view(qn, -1, MARK_GROUP).sum(
+        dim=2, dtype=torch.int32)
+    # the bits are disjoint, so the int32 sum is their OR (bit 31 the sign)
+    return Marks(counts, groups, (above.int() * bit).sum(dim=3, dtype=torch.int32))
+
+
+def marked_rows_reference(marks: Marks, cap: int) -> torch.Tensor:
+    """[Q, cap] int64: the rows the masks mark in blocks with a count, in
+    block order then row order (ascending), n_pad = nb * SIMS_ROWS past
+    them: the extraction of a query at or under the cap, row for row."""
+    qn, nb = marks.counts.shape
+    bit = torch.arange(32, dtype=torch.int32, device=marks.masks.device)
+    marked = ((marks.masks[..., None] >> bit) & 1).bool() & (marks.counts > 0)[:, :, None, None]
+    taken, rows = _sort_desc(marked.view(qn, -1).to(torch.uint8), min(cap, nb * SIMS_ROWS))
+    ids = torch.where(taken.bool(), rows, nb * SIMS_ROWS)
+    return F.pad(ids, (0, cap - ids.shape[1]), value=nb * SIMS_ROWS)
+
+
 def cutoff_counts(sims, block_max, margin: torch.Tensor, k_cut: int):
     """(cutoff [Q] f32, count [Q], n_blocks [Q]): cutoff = the exact
     ``k_cut``-th best biased sim minus ``margin`` (an f32 tensor; -3e38 when
@@ -401,15 +448,17 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _launch_cutoff_counts(qn: int, sims=None, block_max=None, *, bids=None, extra=None,
                           margin=None, k_cut: int = 0, tops=None, cutoff=None, count=None,
-                          n_blocks=None) -> None:
+                          n_blocks=None, marks: Optional[Marks] = None) -> None:
     """One launch of ``int4_cutoff_counts`` (csrc/select_above.cu): the
     cutoff kernel where ``bids`` or ``extra`` is given, then the count
-    kernel where ``count`` is."""
+    pass where ``count`` is (with ``marks`` to fill)."""
     nb = 0 if block_max is None else block_max.shape[1]
+    counts, groups, masks = marks if marks is not None else (None, None, None)
     code = kernels.library().semtools_int4_cutoff_counts(
         _ptr(sims), _ptr(block_max), qn, nb, _ptr(bids), 0 if bids is None else bids.shape[1],
         _ptr(extra), 0 if extra is None else extra.shape[1], _ptr(margin), k_cut, _ptr(tops),
-        _ptr(cutoff), _ptr(count), _ptr(n_blocks), _stream())
+        _ptr(cutoff), _ptr(count), _ptr(n_blocks), _ptr(counts), _ptr(groups), _ptr(masks),
+        _stream())
     kernels.check(code, "int4_cutoff_counts")
 
 
@@ -426,42 +475,69 @@ def _margin_operand(margin, device) -> torch.Tensor:
     return margin
 
 
+def _marks_shapes(qn: int, nb: int):
+    return (qn, nb), (qn, -(-nb // MARK_GROUP)), (qn, nb, MASK_WORDS)
+
+
+def _empty_marks(qn: int, nb: int, device) -> Marks:
+    return Marks(*(torch.empty(shape, dtype=torch.int32, device=device)
+                   for shape in _marks_shapes(qn, nb)))
+
+
+def _check_marks(marks: Marks, qn: int, nb: int, device) -> None:
+    for t, shape in zip(marks, _marks_shapes(qn, nb)):
+        if (t.device != device or t.dtype != torch.int32 or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"marks must be contiguous int32 {_marks_shapes(qn, nb)} on "
+                             f"{device}; got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
 def select_cutoff(sims, block_max, margin: torch.Tensor, k_cut: int):
-    """:func:`cutoff_counts` (``select_subtiles`` for the min(k_cut, nb)
-    best blocks, then kernel ``int4_cutoff_counts``): the count reads only
-    the blocks whose max is at or above the cutoff, where every row at or
-    above it lies. ``margin`` is a 0-d f32 tensor on the sweep's device."""
+    """(cutoff, count, n_blocks) of :func:`cutoff_counts` and the
+    :class:`Marks` of the rows at or above the cutoff (``select_subtiles``
+    for the min(k_cut, nb) best blocks, then kernel ``int4_cutoff_counts``):
+    the count pass reads only the blocks whose max is at or above the
+    cutoff, where every row at or above it lies, once. ``margin`` is a 0-d
+    f32 tensor on the sweep's device."""
     if sims.device.type == "cpu":
-        return cutoff_counts(sims, block_max, margin, k_cut)
+        cutoff, count, n_blocks = cutoff_counts(sims, block_max, margin, k_cut)
+        return cutoff, count, n_blocks, marks_reference(sims, block_max, cutoff)
     qn, nb = _selection_operands(sims, block_max)
     dev = sims.device
     cutoff = torch.empty(qn, dtype=torch.float32, device=dev)
     count = torch.empty(qn, dtype=torch.int64, device=dev)
     n_blocks = torch.empty(qn, dtype=torch.int64, device=dev)
+    marks = _empty_marks(qn, nb, dev)
     _launch_cutoff_counts(qn, sims, block_max, bids=_best_blocks(block_max, min(k_cut, nb)),
                           margin=_margin_operand(margin, dev), k_cut=k_cut, cutoff=cutoff,
-                          count=count, n_blocks=n_blocks)
-    return cutoff, count, n_blocks
+                          count=count, n_blocks=n_blocks, marks=marks)
+    return cutoff, count, n_blocks, marks
 
 
-def select_above(sims, block_max, cutoff, count, *, n_b: int, cap: int) -> torch.Tensor:
-    """:func:`extract_above` (kernel ``int4_extract_above``) with ``count``
-    the counts of :func:`select_cutoff`: the same set of rows, in block
-    order then row order; a query past ``cap`` keeps the cap best by
-    ``lax.top_k``'s order over its gathered blocks."""
+def select_above(sims, block_max, cutoff, count, marks: Marks, *, n_b: int, cap: int,
+                 max_count: int) -> torch.Tensor:
+    """:func:`extract_above` (kernel ``int4_extract_above``) from the counts
+    and marks of :func:`select_cutoff` or :func:`counts_above` (on a card
+    the marks stand for ``cutoff`` and ``n_b``), with ``max_count`` >= every
+    query's count (the batch's maximum, the one host read): the same set of
+    rows, in row order. A query at or under ``cap`` takes the rows its masks
+    mark (:func:`marked_rows_reference`, row for row), with no sim read: when
+    ``max_count`` <= ``cap`` that is the one launch. Past it every query's
+    marked rows are listed first, and a query past the cap keeps the cap
+    best of them by ``lax.top_k``'s order over its gathered blocks."""
     if sims.device.type == "cpu":
         return extract_above(sims, block_max, cutoff, n_b=n_b, cap=cap)
     qn, nb = _selection_operands(sims, block_max)
-    n_b = min(n_b, nb)
-    _check_per_query(cutoff, torch.float32, qn, sims.device)
     _check_per_query(count, torch.int64, qn, sims.device)
+    _check_marks(marks, qn, nb, sims.device)
     out = torch.empty((qn, cap), dtype=torch.int64, device=sims.device)
-    # per query: its rule (4 words), the per-block counts, the listing of
-    # its candidate blocks (read past the cap only)
-    scratch = torch.empty(qn * (4 + nb + n_b), dtype=torch.int32, device=sims.device)
+    # past the cap: every query's marked rows, listed before the choice
+    listing = (torch.empty((qn, max_count), dtype=torch.int32, device=sims.device)
+               if max_count > cap else None)
     code = kernels.library().semtools_int4_extract_above(
-        sims.data_ptr(), block_max.data_ptr(), qn, nb, cutoff.data_ptr(), count.data_ptr(), cap,
-        n_b, scratch.data_ptr(), out.data_ptr(), _stream())
+        sims.data_ptr(), block_max.data_ptr(), qn, nb, count.data_ptr(),
+        *(t.data_ptr() for t in marks), cap, _ptr(listing),
+        0 if listing is None else max_count, out.data_ptr(), _stream())
     kernels.check(code, "int4_extract_above")
     return out
 
@@ -491,16 +567,20 @@ def tops_cutoff(tops, margin: torch.Tensor, k_cut: int) -> torch.Tensor:
 
 
 def counts_above(sims, block_max, cutoff):
-    """:func:`counts_above_reference` (kernel ``int4_cutoff_counts``, its
-    count kernel alone)."""
+    """(count, n_blocks) of :func:`counts_above_reference` and the
+    :class:`Marks` against a given cutoff (kernel ``int4_cutoff_counts``,
+    its count pass alone)."""
     if sims.device.type == "cpu":
-        return counts_above_reference(sims, block_max, cutoff)
+        return (*counts_above_reference(sims, block_max, cutoff),
+                marks_reference(sims, block_max, cutoff))
     qn, nb = _selection_operands(sims, block_max)
     _check_per_query(cutoff, torch.float32, qn, sims.device)
     count = torch.empty(qn, dtype=torch.int64, device=sims.device)
     n_blocks = torch.empty(qn, dtype=torch.int64, device=sims.device)
-    _launch_cutoff_counts(qn, sims, block_max, cutoff=cutoff, count=count, n_blocks=n_blocks)
-    return count, n_blocks
+    marks = _empty_marks(qn, nb, sims.device)
+    _launch_cutoff_counts(qn, sims, block_max, cutoff=cutoff, count=count, n_blocks=n_blocks,
+                          marks=marks)
+    return count, n_blocks, marks
 
 
 def select_candidates(q8, sims, block_max, n_rows: int, *,
@@ -517,10 +597,12 @@ def select_candidates(q8, sims, block_max, n_rows: int, *,
     if sims.device.type == "cpu":
         return select_candidates_reference(q8, sims, block_max, n_rows,
                                            margin_sigmas=margin_sigmas, k_cut=k_cut)
-    cutoff, count, n_blocks = select_cutoff(sims, block_max, margin_on_device(q8, margin_sigmas),
-                                            k_cut)
-    cap, n_b = candidate_sizes(*batch_maxima(count, n_blocks), n_rows, block_max.shape[1])
-    return select_above(sims, block_max, cutoff, count, n_b=n_b, cap=cap)
+    cutoff, count, n_blocks, marks = select_cutoff(
+        sims, block_max, margin_on_device(q8, margin_sigmas), k_cut)
+    max_count, max_nb = batch_maxima(count, n_blocks)
+    cap, n_b = candidate_sizes(max_count, max_nb, n_rows, block_max.shape[1])
+    return select_above(sims, block_max, cutoff, count, marks, n_b=n_b, cap=cap,
+                        max_count=max_count)
 
 
 def int4_deep_candidates(

@@ -186,9 +186,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.semtools_int4_sims_max.argtypes = [p, p, p, i32, i32, i64, p, p, i64, p]
     lib.semtools_int4_cutoff_counts.restype = i32
     lib.semtools_int4_cutoff_counts.argtypes = [p, p, i32, i64, p, i32, p, i32, p, i32, p, p, p,
-                                                p, p]
+                                                p, p, p, p, p]
     lib.semtools_int4_extract_above.restype = i32
-    lib.semtools_int4_extract_above.argtypes = [p, p, i32, i64, p, p, i32, i32, p, p, p]
+    lib.semtools_int4_extract_above.argtypes = [p, p, i32, i64, p, p, p, p, i32, p, i64, p, p]
     lib.semtools_stream_tiles.restype = i32
     lib.semtools_stream_tiles.argtypes = [p, i64, i64, i32, p, p]
     lib.semtools_stream_ring.restype = i32

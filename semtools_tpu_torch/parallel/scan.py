@@ -207,7 +207,8 @@ def sharded_int4_deep_candidates_device(
     blocks; -inf fill on a shard of fewer rows); the global ``k_cut``-th best
     minus the noise margin is the cutoff (-3e38 when it is -inf), the
     per-query maximum over shards of the counts above it sizes the
-    extraction, and each shard extracts its rows above it. The cutoff is the
+    extraction, and each shard extracts its rows above it from the marks of
+    its count (its hit blocks' sims read once under the cap). The cutoff is the
     single-device one, so the candidate set is too. On a card every step
     after the sweeps is ``select_subtiles`` or a kernel of
     ``csrc/select_above.cu``, and the counts' maxima are the one host read
@@ -245,9 +246,10 @@ def sharded_int4_deep_candidates_device(
     cutoff = tops_cutoff(_gathered(tops, dev), margin, k_cut)
     count = torch.zeros(qn, dtype=torch.int64, device=dev)
     n_blocks = torch.zeros(qn, dtype=torch.int64, device=dev)
-    shard_counts = {}
+    shard_counts, shard_marks = {}, {}
     for g0, (_, sims, bmax) in held.items():
-        shard_counts[g0], shard_blocks = counts_above(sims, bmax, cutoff.to(sims.device))
+        shard_counts[g0], shard_blocks, shard_marks[g0] = counts_above(
+            sims, bmax, cutoff.to(sims.device))
         count = torch.maximum(count, shard_counts[g0].to(dev))
         n_blocks = torch.maximum(n_blocks, shard_blocks.to(dev))
     max_count, max_nb = batch_maxima(multihost.all_max(count), multihost.all_max(n_blocks))
@@ -263,8 +265,8 @@ def sharded_int4_deep_candidates_device(
             ids.append(torch.full((qn, cap), sentinel, dtype=torch.int64, device=dev))
             continue
         lt, sims, bmax = held[g0]
-        loc = select_above(sims, bmax, cutoff.to(sims.device), shard_counts[g0], n_b=n_b,
-                           cap=cap)
+        loc = select_above(sims, bmax, cutoff.to(sims.device), shard_counts[g0], shard_marks[g0],
+                           n_b=n_b, cap=cap, max_count=max_count)
         ids.append(torch.where(loc < lt, loc + g0, sentinel))
     return _gathered(ids, dev)
 

@@ -161,14 +161,23 @@ def _same_sets(got, want, n):
         assert torch.equal(g[g < n].sort().values, w[w < n].sort().values)
 
 
+def _same_marks(got, want):
+    """Equal counts and group totals, and equal masks wherever a block has a
+    count (the kernel writes no other)."""
+    assert torch.equal(got.counts, want.counts) and torch.equal(got.groups, want.groups)
+    hit = want.counts > 0
+    assert torch.equal(got.masks[hit], want.masks[hit])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mask_kind", [None, "random", "few"])
 @pytest.mark.parametrize("qn,k_cut,cap", [(1, 10, None), (8, 10, 6), (40, 30, 3), (3, 12, 1)])
 def test_selection_kernels_match_plain_versions(cuda_device, qn, k_cut, cap, mask_kind):
     """int4_cutoff_counts (every mode) and int4_extract_above against their
-    plain versions on the same sweep: cutoffs bit-equal, counts equal, the
-    same candidate sets under the cap and past it (query 0's seven equal
-    rows straddle it), the same tensor from a second call."""
+    plain versions on the same sweep: cutoffs bit-equal, counts and marks
+    equal, under the cap the rows the marks give, row for row, past it
+    (query 0's seven equal rows straddle it) the same candidate sets, the
+    same tensor from a second call."""
     gen = torch.Generator().manual_seed(qn * k_cut)
     n, n_true = 6000, 5900
     q8, p4 = _data(gen, n, qn, cuda_device)
@@ -177,24 +186,30 @@ def test_selection_kernels_match_plain_versions(cuda_device, qn, k_cut, cap, mas
     margin = i4.margin_on_device(q8)
     assert margin.item() == float(i4.cutoff_margin(q8))
     before = kernels.launch_counts()
-    cutoff, count, n_blocks = i4.select_cutoff(sims, bmax, margin, k_cut)
+    cutoff, count, n_blocks, marks = i4.select_cutoff(sims, bmax, margin, k_cut)
     want_c, want_n, want_b = i4.cutoff_counts(sims, bmax, margin, k_cut)
     assert torch.equal(cutoff.view(torch.int32), want_c.view(torch.int32))
     assert torch.equal(count, want_n) and torch.equal(n_blocks, want_b)
+    _same_marks(marks, i4.marks_reference(sims, bmax, want_c))
     max_count, max_nb = i4.batch_maxima(count, n_blocks)
     size, n_b = i4.candidate_sizes(max_count, max_nb, n_true, bmax.shape[1])
     for c in (size, cap or size):
-        got = i4.select_above(sims, bmax, cutoff, count, n_b=n_b, cap=c)
+        got = i4.select_above(sims, bmax, cutoff, count, marks, n_b=n_b, cap=c,
+                              max_count=max_count)
         _same_sets(got, i4.extract_above(sims, bmax, cutoff, n_b=n_b, cap=c), n_true)
-        assert torch.equal(got, i4.select_above(sims, bmax, cutoff, count, n_b=n_b, cap=c))
+        under = count <= c
+        assert torch.equal(got[under], i4.marked_rows_reference(marks, c)[under])
+        assert torch.equal(got, i4.select_above(sims, bmax, cutoff, count, marks, n_b=n_b,
+                                                cap=c, max_count=max_count))
     tops = i4.block_tops(sims, bmax, k_cut)
     assert torch.equal(tops.sort(dim=1, descending=True).values,
                        i4.block_tops_reference(sims, bmax, k_cut))
     merged = torch.cat([tops, tops.flip(0)], dim=1)
     assert torch.equal(i4.tops_cutoff(merged, margin, k_cut),
                        i4.tops_cutoff_reference(merged, margin, k_cut))
-    got_n, got_b = i4.counts_above(sims, bmax, want_c)
+    got_n, got_b, got_marks = i4.counts_above(sims, bmax, want_c)
     assert torch.equal(got_n, want_n) and torch.equal(got_b, want_b)
+    _same_marks(got_marks, marks)
     torch.cuda.synchronize()
     after = kernels.launch_counts()
     assert after["int4_cutoff_counts"] == before["int4_cutoff_counts"] + 4
@@ -233,28 +248,43 @@ def test_quantization_and_margin_stay_on_the_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cap", [None, "4"])
 @pytest.mark.parametrize("masked", [False, True])
-def test_sharded_selection_on_four_shards(cuda_device, monkeypatch, masked):
-    """The sharded twin on 4 shards of the card gives the single device's
-    sets, each shard running the selection kernels."""
+def test_sharded_selection_on_four_shards(cuda_device, monkeypatch, masked, cap):
+    """The sharded twin on 4 shards of the card, each shard running the
+    selection kernels, gives the sets of the same twin on 4 CPU shards (the
+    plain versions), under the cap and past it, and under it the single
+    device's."""
     from semtools_tpu_torch.parallel import mesh as torch_mesh
     from semtools_tpu_torch.parallel import scan as sh
 
+    if cap:
+        monkeypatch.setenv("SEMTOOLS_TPU_INT4_CAP", cap)
+    else:
+        monkeypatch.delenv("SEMTOOLS_TPU_INT4_CAP", raising=False)
     monkeypatch.setenv(torch_mesh.VIRTUAL_ENV, "4")
     monkeypatch.setattr(torch_mesh, "_VIRTUAL", None)
     gen = torch.Generator().manual_seed(11)
     n = 9000
     q8, p4 = _data(gen, n, 8, cuda_device)
-    mesh = torch_mesh.corpus_mesh(4, "cuda")
-    p4s, _ = torch_mesh.shard_corpus(p4, mesh, fill=i4.PACKED_ZERO_BYTE)
     mask = _mask("random", n, gen, cuda_device) if masked else None
-    ms = None if mask is None else torch_mesh.shard_rows(mask, mesh)
-    before = kernels.launch_counts()
-    ids = sh.sharded_int4_deep_candidates_device(q8.float(), p4s, n, mask=ms)
-    torch.cuda.synchronize()
-    after = kernels.launch_counts()
-    assert after["int4_extract_above"] - before["int4_extract_above"] == 4
-    assert after["int4_cutoff_counts"] - before["int4_cutoff_counts"] == 9  # 4 tops, 1 merge, 4 counts
-    want = i4.int4_deep_candidates(q8.float(), p4, mask=mask)
-    for g, w in zip(ids.cpu(), want.cpu()):
+    ids = {}
+    for dev in ("cuda", "cpu"):
+        mesh = torch_mesh.corpus_mesh(4, dev)
+        p4s, _ = torch_mesh.shard_corpus(p4.to(dev), mesh, fill=i4.PACKED_ZERO_BYTE)
+        ms = None if mask is None else torch_mesh.shard_rows(mask.to(dev), mesh)
+        before = kernels.launch_counts()
+        ids[dev] = sh.sharded_int4_deep_candidates_device(q8.float().to(dev), p4s, n, mask=ms)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        if dev == "cuda":
+            assert after["int4_extract_above"] - before["int4_extract_above"] == 4
+            # 4 tops, 1 merge, 4 counts
+            assert after["int4_cutoff_counts"] - before["int4_cutoff_counts"] == 9
+    assert ids["cuda"].shape == ids["cpu"].shape
+    for g, w in zip(ids["cuda"].cpu(), ids["cpu"]):
         assert set(g[g < n].tolist()) == set(w[w < n].tolist())
+    if cap is None:
+        want = i4.int4_deep_candidates(q8.float(), p4, mask=mask)
+        for g, w in zip(ids["cuda"].cpu(), want.cpu()):
+            assert set(g[g < n].tolist()) == set(w[w < n].tolist())

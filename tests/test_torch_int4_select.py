@@ -1,7 +1,7 @@
 """The port's int4 deep-candidate selection (semtools_tpu_torch.ops.int4_scan:
 the query quantization and the margin kept on the device, the single-read
-sizing, the cutoff, counts and extraction and the sharded twin's pieces)
-against the JAX package's (semtools_tpu.ops.int4_scan ``_int4_cutoff_counts``
+sizing, the cutoff, counts, the count pass's marks and extraction and the
+sharded twin's pieces) against the JAX package's (semtools_tpu.ops.int4_scan ``_int4_cutoff_counts``
 / ``int4_deep_candidates`` and semtools_tpu.parallel.scan, Pallas in
 interpret mode on the CPU), on the same numpy inputs.
 
@@ -114,14 +114,19 @@ def test_margin_on_device_is_bit_equal(qn, zero, sigmas):
     assert _bits(got.item()) == _bits(np.float32(sigmas * sigma))  # the JAX package's formula
 
 
+def _jax_tile(qn, p4, n_true):
+    """The JAX package's sweep tile for qn queries (padded to 8)."""
+    return jax_int4._clamp_tile_to_padding(
+        jax_int4.tile_for_rows(n_true, qn + (-qn) % 8), p4.shape[0], n_true)
+
+
 def _jax_selection(q, p4, n_true, mask, k_cut):
     """The JAX package's (sims, block maxima, cutoff, count, n_blocks) and its
     (cap, n_b), as int4_deep_candidates computes them."""
     q8, _ = jax_quantize(q)
     qn = q8.shape[0]
     q8 = np.concatenate([q8, np.zeros(((-qn) % 8, q8.shape[1]), np.int8)])
-    tile_n = jax_int4._clamp_tile_to_padding(
-        jax_int4.tile_for_rows(n_true, q8.shape[0]), p4.shape[0], n_true)
+    tile_n = _jax_tile(qn, p4, n_true)
     p4j = bucket_pad_rows(jnp.asarray(p4), tile_n, n_true=n_true)
     if mask is None:
         mask2d = jnp.zeros((1, 1), jnp.int8)
@@ -161,7 +166,7 @@ def test_selection_pieces_and_sizing_match_jax(n_true, qn, k_cut, mask_kind, mon
     (_, _, cut_j, count_j, nb_j), cap_j, n_b_j = _jax_selection(q, p4, n_true, mask, k_cut)
     q8, sims, bmax = _port_sweep(q, p4, n_true, mask)
     margin = torch.tensor(int4_scan.cutoff_margin(q8))
-    cutoff, count, n_blocks = int4_scan.select_cutoff(sims, bmax, margin, k_cut)
+    cutoff, count, n_blocks, _ = int4_scan.select_cutoff(sims, bmax, margin, k_cut)
     np.testing.assert_array_equal(cutoff.numpy().view(np.uint32), cut_j.view(np.uint32))
     np.testing.assert_array_equal(count.numpy(), count_j)
     np.testing.assert_array_equal(n_blocks.numpy(), nb_j)
@@ -175,11 +180,81 @@ def test_selection_pieces_and_sizing_match_jax(n_true, qn, k_cut, mask_kind, mon
     got = int4_scan.tops_cutoff(torch.cat([tops, torch.full_like(tops, -np.inf)], dim=1),
                                 margin, k_cut)
     np.testing.assert_array_equal(got.numpy().view(np.uint32), cut_j.view(np.uint32))
-    c2, nb2 = int4_scan.counts_above(sims, bmax, got)
+    c2, nb2, _ = int4_scan.counts_above(sims, bmax, got)
     np.testing.assert_array_equal(c2.numpy(), count_j)
     np.testing.assert_array_equal(nb2.numpy(), nb_j)
     if mask_kind == "few":
         assert (cutoff.numpy() == np.float32(-3e38)).all()  # fewer than k_cut rows
+
+
+def _jax_extract(out, p4, n_true, n_b, cap):
+    """The JAX package's _extract_above on its own selection's outputs."""
+    sims, flat_max, cutoff = (jnp.asarray(x) for x in out[:3])
+    sub_n = min(jax_int4.SUB_N, _jax_tile(sims.shape[0], p4, n_true))
+    return np.asarray(jax_int4._extract_above(sims, flat_max, cutoff, n_b=n_b, cap=cap,
+                                              sub_n=sub_n))
+
+
+def _popcount(masks):
+    return sum((masks >> b) & 1 for b in range(32)).sum(dim=-1)
+
+
+@pytest.mark.parametrize("mask_kind", [None, "random", "few"])
+@pytest.mark.parametrize("n_true,qn,k_cut", [(N, 8, 10), (1999, 3, 12), (N, 1, 40)])
+def test_marks_match_jax_counts_and_extraction(n_true, qn, k_cut, mask_kind, monkeypatch):
+    """The marks the count pass hands the extraction (plain versions, on the
+    port's sweep, from select_cutoff and from counts_above): the per-block
+    counts sum to JAX's counts, per group too; the blocks with a count are
+    JAX's blocks at or above the cutoff; each mask holds its block's count
+    of bits; and the rows the masks mark, in block and row order, are the
+    set JAX's extraction returns under its cap, ascending, then n_pad."""
+    monkeypatch.delenv("SEMTOOLS_TPU_INT4_MARGIN_SIGMAS", raising=False)
+    monkeypatch.delenv("SEMTOOLS_TPU_INT4_CAP", raising=False)
+    q, p4 = _corpus(qn + k_cut, qn)
+    mask = _mask(mask_kind, N, k_cut)
+    out, cap_j, n_b_j = _jax_selection(q, p4, n_true, mask, k_cut)
+    count_j, nb_j = out[3], out[4]
+    assert count_j.max() <= cap_j  # every query under the cap
+    want = _jax_extract(out, p4, n_true, n_b_j, cap_j)
+    q8, sims, bmax = _port_sweep(q, p4, n_true, mask)
+    cutoff, _, _, marks = int4_scan.select_cutoff(
+        sims, bmax, torch.tensor(int4_scan.cutoff_margin(q8)), k_cut)
+    n_pad = sims.shape[1]
+    assert marks.counts.shape == (qn, n_pad // int4_scan.SIMS_ROWS)
+    np.testing.assert_array_equal(marks.counts.sum(dim=1).numpy(), count_j)
+    np.testing.assert_array_equal(marks.groups.sum(dim=1).numpy(), count_j)
+    np.testing.assert_array_equal((marks.counts > 0).sum(dim=1).numpy(), nb_j)
+    assert torch.equal(_popcount(marks.masks), marks.counts)
+    rows = int4_scan.marked_rows_reference(marks, cap_j)
+    assert rows.shape == (qn, cap_j)
+    assert _sets(rows, n_true) == _sets(want, n_true)
+    for r, c in zip(rows, count_j):
+        assert torch.equal(r[:c], r[:c].sort().values) and bool((r[:c] < n_true).all())
+        assert bool((r[c:] == n_pad).all())
+    again = int4_scan.counts_above(sims, bmax, cutoff)[2]
+    assert all(torch.equal(a, b) for a, b in zip(again, marks))
+
+
+@pytest.mark.parametrize("cap", [1, 4, 5, 6])
+@pytest.mark.parametrize("mask_kind", [None, "random"])
+def test_rows_kept_past_the_cap_are_marked(cap, mask_kind, monkeypatch):
+    """Past the cap the extraction chooses among the marked rows only: JAX's
+    cap rows of each query past it are all marked (its cap-th best is at or
+    above the cutoff), and the port's plain extraction keeps the same set."""
+    monkeypatch.delenv("SEMTOOLS_TPU_INT4_MARGIN_SIGMAS", raising=False)
+    q, p4 = _corpus(5, 4)
+    mask = _mask(mask_kind, N, 9)
+    out, _, n_b_j = _jax_selection(q, p4, N, mask, 10)
+    want = _jax_extract(out, p4, N, n_b_j, cap)
+    q8, sims, bmax = _port_sweep(q, p4, N, mask)
+    cutoff, count, _, marks = int4_scan.select_cutoff(
+        sims, bmax, torch.tensor(int4_scan.cutoff_margin(q8)), 10)
+    assert bool((count > cap).all())
+    marked = _sets(int4_scan.marked_rows_reference(marks, N), N)
+    kept = _sets(want, N)
+    assert all(len(k) == cap and k <= m for k, m in zip(kept, marked))
+    got = int4_scan.extract_above(sims, bmax, cutoff, n_b=n_b_j, cap=cap)
+    assert _sets(got, N) == kept
 
 
 @pytest.mark.parametrize("cap", ["1", "4", "5", "6"])
