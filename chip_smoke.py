@@ -175,6 +175,20 @@ exits non-zero without them. Phases:
    lines through ``search.py``'s sharded branch. The counts are reset
    before each run on the mesh and read after: their sums are each
    kernel's ``sharded_launches``.
+12. the soak (``python -m semtools_tpu_torch.soak``) in a child process on
+   the card, its sharded tiers on 4 shards (``SEMTOOLS_TORCH_VIRTUAL_DEVICES=4``),
+   at ``SOAK_ARGS``: the store campaign (random op sequences on its eleven
+   tiers at dims 13 and 16, corpora of 1-300 rows, k in {1, 3, 70, n+5}, Q
+   in {1, 2, 40}, thresholds, subsets, zero and duplicate rows, compaction
+   mid-churn), the workspace and daemon campaigns and the SIGKILL crash
+   campaign (its verifier serving on the card), every answer against brute
+   force. It fails on a mismatch, on a campaign with no check, and when a
+   serving kernel of ``SOAK_KERNELS`` (or a sharded twin of
+   ``SOAK_SHARDED``) shows no launch in the soak's counts (reset before each
+   campaign); the kernels of ``SOAK_REPORTED`` are logged with their
+   launches and the routing that keeps them out. Each campaign's wall,
+   checks and launches are logged; the sums are each kernel's
+   ``soak_launches``.
 
 Phases 6-10 check their hits against a plain exact scan of the same
 embeddings on the card (tolerance as in phase 2), and every kernel of each
@@ -183,8 +197,8 @@ The launch floor (an empty kernel through the kernels' ctypes path) is
 timed after the build. The last line of stdout is ``{"ok": true,
 "device": {...}}``; the lines before it are the card's name and power limit,
 the ``stream_roof_gbps`` line, and the per-kernel JSON summary (with
-``device_ms``, ``floor_ms``, ``ask_launches`` and ``sharded_launches`` beside the
-contract's keys;
+``device_ms``, ``floor_ms``, ``ask_launches``, ``sharded_launches`` and
+``soak_launches`` beside the contract's keys;
 a probe's entry is the call named in PROBES).
 """
 
@@ -2961,6 +2975,74 @@ def sharded_phase(files, qfile, subset, thr):
     log(f"sharded: phase 11 done in {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 12: the soak's size (the largest that keeps the phase near 4 minutes
+# on the card), the serving kernels its routes must launch, the sharded
+# twins by the store campaign's tier, and the kernels it is not expected to
+# reach with the routing that keeps them out.
+SOAK_ARGS = ("--steps", "40", "--seeds", "2", "--crash-rounds", "16")
+SOAK_KERNELS = ("select_subtiles", "int8_tilemax", "int8_rescan_topk", "int8_tilemax_masked",
+                "int8_rescan_topk_masked", "int4_sims_max", "int4_sims_max_masked",
+                "int4_cutoff_counts", "int4_extract_above", "fused_tilemax",
+                "fused_rescan_topk")
+SOAK_SHARDED = {
+    "SHARDED=1": ("fused_tilemax", "select_subtiles", "fused_rescan_topk"),
+    "SHARDED=1+STORE_INT8=1": ("int8_tilemax", "select_subtiles", "int8_rescan_topk"),
+    "SHARDED=1+STORE_INT4=1": ("int4_sims_max", "int4_cutoff_counts", "int4_extract_above"),
+}
+SOAK_REPORTED = {
+    "fused_scan_candidates": "K2: one device's f32 scan takes the single phase while "
+                             "tiles <= 2*Q*k (ops/fused_scan.py fused_topk_scan), "
+                             "and only from 256 slots, k <= 64, Q <= 32 (ops/scan.py _use_fused)",
+    "int4_tilemax": "K5: the store never calls int4_topk_scan; its int4 tiers sweep "
+                    "through K6 (store/store.py _search_slot_cached_batched)",
+    "int4_rescan_topk": "K5, as int4_tilemax",
+    "int4_tilemax_masked": "K5, as int4_tilemax",
+    "int4_rescan_topk_masked": "K5, as int4_tilemax",
+}
+SOAK_LAUNCHES = {}  # kernel -> launches summed over phase 12's campaigns
+
+
+def soak_phase() -> None:
+    """Phase 12: the soak in a child process on the card; the launches of
+    its campaigns go to SOAK_LAUNCHES."""
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SEMTOOLS_")}
+    env.update(SEMTOOLS_TORCH_VIRTUAL_DEVICES=str(SHARDS), SEMTOOLS_TPU_NO_FETCH="1",
+               SEMTOOLS_TPU_ALLOW_FALLBACK="1", PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-m", "semtools_tpu_torch.soak", *SOAK_ARGS],
+                          env=env, cwd=str(REPO), stdin=subprocess.DEVNULL,
+                          capture_output=True, text=True, timeout=480)
+    reports = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith('{"campaign"')]
+    for ln in proc.stdout.splitlines():
+        if "MISMATCH" in ln or "FAILURE" in ln:
+            log(f"soak: {ln}")
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 12 (soak) exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    names = [r["campaign"] for r in reports]
+    if names != ["store", "workspace", "daemon", "crash"]:
+        raise AssertionError(f"phase 12 reported campaigns {names}")
+    for r in reports:
+        launched = {k: v for k, v in r["launches"].items() if v}
+        log(f"soak: {r['campaign']} campaign: {r['checks']} checks, {r['failures']} failures, "
+            f"{r['wall_s']:.3f} s wall; launches {launched} ({CARD})")
+        if r["failures"] or r["checks"] <= 0:
+            raise AssertionError(f"phase 12: the {r['campaign']} campaign: {r}")
+        for k, v in r["launches"].items():
+            SOAK_LAUNCHES[k] = SOAK_LAUNCHES.get(k, 0) + v
+    tiers = reports[0]["tiers"]
+    for tier, counts in tiers.items():
+        log(f"soak: store tier {tier}: launches {counts}")
+    missing = [k for k in SOAK_KERNELS if not SOAK_LAUNCHES.get(k)]
+    missing += [f"{k} ({tier})" for tier, ks in SOAK_SHARDED.items() for k in ks
+                if not tiers.get(tier, {}).get(k)]
+    if missing:
+        raise AssertionError(f"phase 12: the soak's routes never launched {missing}")
+    for k, why in SOAK_REPORTED.items():
+        log(f"soak: {k}: {SOAK_LAUNCHES.get(k, 0)} launches ({why})")
+    log(f"soak: phase 12 done in {time.perf_counter() - t0:.1f} s ({CARD})")
+
+
 def main() -> int:
     if not (REPO / "semtools_tpu_torch").is_dir() or not (REPO / "cpp").is_dir():
         print("error: run chip_smoke.py from a checkout of the repository", file=sys.stderr)
@@ -3035,6 +3117,7 @@ def main() -> int:
                 else:
                     os.environ["HOME"] = old_home
         log(f"parse: done in {time.perf_counter() - t0:.1f} s ({card})")
+    soak_phase()
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "semtools_tpu"))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
@@ -3065,6 +3148,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "ask_launches": ASK_LAUNCHES.get(name, 0),
             "sharded_launches": SHARDED_LAUNCHES.get(name, 0),
+            "soak_launches": SOAK_LAUNCHES.get(name, 0),
         })
     for name, r in probes.items():  # launches on each probe module's own run
         summary["kernels"].append({
@@ -3076,6 +3160,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "ask_launches": ASK_LAUNCHES.get(name, 0),
             "sharded_launches": SHARDED_LAUNCHES.get(name, 0),
+            "soak_launches": SOAK_LAUNCHES.get(name, 0),
         })
     log(f"stream_roof_gbps: {roof:.1f} ({card or 'card name and power limit unavailable'})")
     log(card or "nvidia-smi: name and power limit unavailable")

@@ -22,6 +22,7 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from semtools_tpu_torch.ops import fused_scan
 
@@ -63,6 +64,18 @@ def _use_fused(n: int, k: int, qn: int, device: torch.device,
     return n >= 2 * fused_scan.SUB_ROWS
 
 
+def _aligned(q: torch.Tensor, e: torch.Tensor):
+    """``q`` and ``e`` with zero columns up to the kernels' 16-byte rows: a
+    padded copy when ``e``'s rows are not aligned (the store's slot corpus is
+    kept padded, so only a gathered corpus pays it). Dot products are
+    unchanged."""
+    per = 16 // e.element_size()
+    pad = -e.shape[1] % per
+    if not pad:
+        return q, e
+    return F.pad(q, (0, pad)), F.pad(e, (0, pad))
+
+
 def topk_scan(
     q: torch.Tensor, e: torch.Tensor, k: int, n_true: Optional[int] = None,
     mask: Optional[torch.Tensor] = None,
@@ -83,7 +96,7 @@ def topk_scan(
                 torch.zeros((qn, 0), dtype=torch.int64, device=e.device))
     q = q.to(e.device)
     if mask is None and _use_fused(n, k_eff, qn, e.device, e.dtype):
-        return fused_scan.fused_topk_scan(q, e, k_eff, n_true=n)
+        return fused_scan.fused_topk_scan(*_aligned(q, e), k_eff, n_true=n)
 
     # Running merge over row chunks: each step merges [Q, <= 2k], and the
     # best-so-far sits before the new chunk, so a stable sort keeps ties

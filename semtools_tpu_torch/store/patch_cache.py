@@ -15,7 +15,10 @@ row's ceil-quantized residual norm, see ``ops/reduce.py``) and "int4" (one
 global scale, split-half packed ``[capacity, D/2]``). Zero rows of the int4
 corpus, freed slots included, hold ``PACKED_ZERO_BYTE`` (0x08), the packing of
 the zero vector. The corpus has no tile padding: the kernels read only
-``n_true = capacity`` rows. With a mesh (mesh-sharded serving) the corpus is
+``n_true = capacity`` rows. Its rows are padded with zero columns to the
+kernels' 16-byte rows (:func:`padded_dim`: a store of any dim is served
+through the kernels), and :meth:`SlotCorpus.query_rows` lays the queries out
+alike. With a mesh (mesh-sharded serving) the corpus is
 a :class:`~semtools_tpu_torch.parallel.mesh.ShardedRows` of
 ``bucket_rows(capacity)`` rows, the rows past the capacity holding the zero
 encoding; builds and patches write through its row ranges, so the code below
@@ -67,6 +70,11 @@ _SLACK = 16  # extra candidates to absorb zero-slot wins
 _RESID_HEADROOM = 1.5
 
 _BUILD_CHUNK_ROWS = 1 << 20  # 1 GB of f32 at D=256 per streamed chunk
+
+# Model columns per 16-byte vector of a stored row, by kind: the kernels
+# (csrc/*.cu) read rows of whole 16-byte vectors. The reduced kind is scored
+# by the plain scan and keeps its rd + 1 columns.
+_ALIGN = {"f32": 4, "int8": 16, "int4": 32}
 
 # Bytes shipped host -> device by corpus builds and patches (instrumentation).
 _uploaded = [0]
@@ -124,12 +132,60 @@ class SlotCorpus:
         self.starts = np.array([v[0] for _, v in items], np.int64)
         self.ends = np.array([v[0] + v[1] for _, v in items], np.int64)
 
+    def query_rows(self, qs: np.ndarray) -> np.ndarray:
+        """[Q, D] f32 queries laid out as the corpus's rows (the zero columns
+        of :func:`pad_columns`). The reduced kind's queries are projected by
+        the caller instead."""
+        if self.rotation is not None:
+            return qs
+        return pad_columns(qs, self.kind, padded_dim(self.kind, qs.shape[1]))
+
     def slot_owners(self, slots: np.ndarray):
         """(valid mask, range index, line number) for scan-result slots."""
         ris = np.searchsorted(self.starts, slots, side="right") - 1
         ris_c = np.clip(ris, 0, len(self.starts) - 1)
         valid = (ris >= 0) & (slots < self.ends[ris_c]) & (slots >= self.starts[ris_c])
         return valid, ris_c, slots - self.starts[ris_c]
+
+
+def padded_dim(kind: str, dim: int) -> int:
+    """Model columns of a stored row of ``kind`` ("f32", "int8" or "int4")
+    for a store of ``dim``: ``dim`` rounded up to the kernels' 16-byte rows
+    (f32 to a multiple of 4, int8 of 16, int4 of 32: 16 packed bytes)."""
+    a = _ALIGN[kind]
+    return -(-dim // a) * a
+
+
+def pad_columns(x, kind: str, width: int):
+    """[N, D] rows (numpy or tensor) -> [N, width] with zero columns: at the
+    end, or for int4 at the end of each half, so the split-half packing keeps
+    the unpadded row's bytes first and packs the padding to
+    ``PACKED_ZERO_BYTE``. Zero columns leave every dot product and the global
+    amax, so the int8 and int4 quantization, bit-equal. ``x`` itself when
+    ``width`` is its own."""
+    d = x.shape[1]
+    if d == width:
+        return x
+    if isinstance(x, torch.Tensor):
+        out = x.new_zeros((x.shape[0], width))
+    else:
+        out = np.zeros((x.shape[0], width), x.dtype)
+    if kind == "int4":
+        h, w2 = d // 2, width // 2
+        out[:, :h] = x[:, :h]
+        out[:, w2 : w2 + h] = x[:, h:]
+    else:
+        out[:, :d] = x
+    return out
+
+
+def _stored_width(kind: str, dim: int, reduced_dim: Optional[int]) -> int:
+    """Columns of a stored row: the reduced kind's rd + 1, else the padded
+    model width (halved for int4's packed bytes)."""
+    if reduced_dim:
+        return reduced_dim + 1
+    w = padded_dim(kind, dim)
+    return w // 2 if kind == "int4" else w
 
 
 def _fill_byte(kind: str) -> int:
@@ -170,9 +226,12 @@ def _residual_norms(rows: np.ndarray, proj: np.ndarray) -> np.ndarray:
 
 def _transform(rows: np.ndarray, kind: str, rotation=None, scale=None,
                resid_scale=None) -> np.ndarray:
-    """A chunk of f32 slot rows in the kind's stored form (host numpy)."""
+    """A chunk of f32 slot rows in the kind's stored form (host numpy), padded
+    to :func:`_stored_width`."""
     rows = np.asarray(rows, np.float32)
-    if rotation is not None:
+    if rotation is None:
+        rows = pad_columns(rows, kind, padded_dim(kind, rows.shape[1]))
+    else:
         proj = rows @ rotation
         q = (np.clip(np.rint(proj / scale), -127, 127).astype(np.int8)
              if scale else np.zeros(proj.shape, np.int8))
@@ -293,7 +352,7 @@ def _device_build_corpus(mm, ranges, cap: int, kind: str, rotation, device, mesh
     resid_scale = float(max_r) * _RESID_HEADROOM / 127.0 if w is not None else None
 
     d = mm.shape[1]
-    out_dim = d // 2 if kind == "int4" else (w.shape[1] + 1 if w is not None else d)
+    out_dim = _stored_width(kind, d, w.shape[1] if w is not None else None)
     corpus = _alloc(cap, out_dim, torch.int8, device, mesh, _fill_byte(kind))
     if scale == 0.0:
         corpus.narrow(0, 0, cap).fill_(_fill_byte(kind))
@@ -303,7 +362,7 @@ def _device_build_corpus(mm, ranges, cap: int, kind: str, rotation, device, mesh
     lim = 127 if kind == "int8" else 7
     l1 = torch.zeros((), dtype=torch.int64, device=device)
     for c0, x in chunks():
-        y = x @ w if w is not None else x
+        y = x @ w if w is not None else pad_columns(x, kind, padded_dim(kind, d))
         q = torch.div(y, scale_t).round_().clamp_(-lim, lim)
         if kind == "int4":
             qi = q.to(torch.int32)
@@ -365,8 +424,7 @@ def _build(store, kind: str, device: torch.device, reduced_dim: Optional[int] = 
             scale = amax / (127.0 if kind == "int8" else 7.0)
             if rotation is not None:
                 resid_scale = max_r * _RESID_HEADROOM / 127.0
-        width = store.dim // 2 if kind == "int4" else (
-            reduced_dim + 1 if rotation is not None else store.dim)
+        width = _stored_width(kind, store.dim, reduced_dim if rotation is not None else None)
         dtype = torch.float32 if kind == "f32" else torch.int8
         corpus = _alloc(cap, width, dtype, device, mesh, _fill_byte(kind))
         for c0, block in _occupied_slot_chunks(mm, ranges, _BUILD_CHUNK_ROWS):

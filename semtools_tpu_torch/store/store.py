@@ -1909,7 +1909,8 @@ class Store:
             return None
         qs = np.asarray(query_vecs, np.float32)
         qn = int(qs.shape[0])
-        q_dev = torch.from_numpy(qs).to(self.device)
+        # laid out as the corpus's rows (zero columns to the kernels' 16-byte rows)
+        q_dev = torch.from_numpy(sc.query_rows(qs)).to(self.device)
         mask = None
         owners, paths = sc.slot_owners, sc.paths
         sel_rows = n_rows

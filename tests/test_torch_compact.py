@@ -275,7 +275,12 @@ def test_warm_corpus_follows_compaction_by_moves(both, kind):
     assert patch_cache.uploaded_bytes() == before  # moves only
     assert sc_t is not old and sc_t.patched_rows == sc_j.patched_rows
     assert sc_t.capacity == sc_j.capacity == 2900 and sc_t.corpus.shape[0] == 2900
-    np.testing.assert_array_equal(np.asarray(sc_j.corpus)[:2900], sc_t.corpus.numpy())
+    # the port pads rows to the kernels' 16 bytes (patch_cache.padded_dim):
+    # JAX's bytes first, the zero encoding after them
+    want = np.asarray(sc_j.corpus)[:2900]
+    got = sc_t.corpus.numpy()
+    np.testing.assert_array_equal(want, got[:, : want.shape[1]])
+    assert (got[:, want.shape[1]:] == patch_cache._fill_byte(kind)).all()
     np.testing.assert_array_equal(sc_j.hashes[:2900], sc_t.hashes)
     _check_search(t, docs, seed=9)
 

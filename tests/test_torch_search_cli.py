@@ -390,6 +390,40 @@ def test_port_search_never_imports_jax(env, tmp_path):
     assert all(not srv.app.script for k, srv in servers.items() if k != "parse")
 
 
+def test_port_soak_never_imports_jax(tmp_path):
+    """The soak (store and crash campaigns, a few steps, ``--device cpu``)
+    and a crash-harness child, in child processes that see only the port
+    (``semtools_tpu_torch/`` and ``cpp/``): the soak checks its own modules
+    (exit 3 on jax, jaxlib or the JAX package), its crash children and the
+    direct child theirs before their readiness record."""
+    import shutil
+
+    root = tmp_path / "port_only"
+    shutil.copytree(REPO / "semtools_tpu_torch", root / "semtools_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__", "_build"))
+    shutil.copytree(REPO / "cpp", root / "cpp")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SEMTOOLS_")}
+    env.update(PYTHONPATH=str(root), HOME=str(tmp_path / "home"), SEMTOOLS_TPU_NO_FETCH="1",
+               SEMTOOLS_TPU_ALLOW_FALLBACK="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "semtools_tpu_torch.soak", "--device", "cpu", "--steps", "4",
+         "--seeds", "1", "--crash-rounds", "2", "--campaigns", "store,crash"],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        stdin=subprocess.DEVNULL, timeout=120)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    reports = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    assert [r["campaign"] for r in reports] == ["store", "crash"]
+    assert all(r["checks"] > 0 and r["failures"] == 0 for r in reports), reports
+    journal = tmp_path / "journal.jsonl"
+    child = subprocess.run(
+        [sys.executable, "-m", "semtools_tpu_torch.soak.crash_harness", "child",
+         str(tmp_path / "ws"), str(journal), "7", "3", "upsert-pre-commit"],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        stdin=subprocess.DEVNULL, timeout=120)
+    assert child.returncode == 137, child.stderr[-2000:]  # the trap, not check_no_jax's 3
+    assert json.loads(journal.read_text().splitlines()[0]) == {"op": "ready", "phase": "done"}
+
+
 def test_port_probes_never_import_jax(tmp_path):
     """Every module of ``semtools_tpu_torch.probes`` (and ``ops.probes``),
     imported and run on the CPU in a child that sees only the port, loads
