@@ -189,6 +189,23 @@ exits non-zero without them. Phases:
    launches and the routing that keeps them out. Each campaign's wall,
    checks and launches are logged; the sums are each kernel's
    ``soak_launches``.
+13. the evaluations (``python -m semtools_tpu_torch.evals``), one after
+   another in a child process on the card (``EVAL_RUNS``): the real-text
+   eval over the committed corpus (31,619 lines; doc-hits, the grep records
+   and the int8 and "reduced_int8" recall@10, 1.0, as the JAX package's
+   committed results; IVF-PQ's recall and the reduced-64d rung's logged), the
+   retrieval eval at 400 papers (precision and grep as committed; the
+   tolerant agreement, 3e-4 one to one, 1.0 for int8 against exact and for
+   batched against single; the reference's rounded agreement logged), the
+   agent eval at 400 papers in both API modes (108/108 citations valid, 30
+   answered, 20/20 fault runs, every record as committed, every transcript
+   as committed once the corpus root is replaced, distances within 1e-5,
+   near-ties free to swap), the retrieval eval at 4,400 papers (275,557
+   lines: the store must pick the int8 tier on its own; agreement 1.0), and
+   the grep router's fuzz (``EVAL_FUZZ_CASES``) on this machine's build of
+   the native scanner. Each pass must launch its kernels (the run's counts
+   from zero, by pass); the sums are each kernel's ``eval_launches``; walls
+   and per-question times are logged.
 
 Phases 6-10 check their hits against a plain exact scan of the same
 embeddings on the card (tolerance as in phase 2), and every kernel of each
@@ -197,8 +214,8 @@ The launch floor (an empty kernel through the kernels' ctypes path) is
 timed after the build. The last line of stdout is ``{"ok": true,
 "device": {...}}``; the lines before it are the card's name and power limit,
 the ``stream_roof_gbps`` line, and the per-kernel JSON summary (with
-``device_ms``, ``floor_ms``, ``ask_launches``, ``sharded_launches`` and
-``soak_launches`` beside the contract's keys;
+``device_ms``, ``floor_ms``, ``ask_launches``, ``sharded_launches``,
+``soak_launches`` and ``eval_launches`` beside the contract's keys;
 a probe's entry is the call named in PROBES).
 """
 
@@ -3043,6 +3060,198 @@ def soak_phase() -> None:
     log(f"soak: phase 12 done in {time.perf_counter() - t0:.1f} s ({CARD})")
 
 
+# -- phase 13: the evaluations on the card ------------------------------------------
+
+K1_PATH = ("fused_tilemax", "select_subtiles", "fused_rescan_topk")
+K3_PATH = ("int8_tilemax", "select_subtiles", "int8_rescan_topk")
+K6_PATH = ("int4_sims_max", "select_subtiles", "int4_cutoff_counts", "int4_extract_above")
+# Each run of phase 13: its evaluation's arguments, then the kernels each of its
+# passes must launch (counts from zero before the run; the passes that must
+# launch none of the scan kernels are logged: the reduced-64d rung's plain
+# scan, IVF-PQ's host probe, the grep tool). The reference's "reduced_int8"
+# sweep is served by the int4 rung at this corpus' size (its 4 MiB budget
+# holds the int4 corpus), so it launches K6.
+EVAL_RUNS = {
+    "realtext": ((), {"build": K1_PATH, "exact": K1_PATH, "int8": K3_PATH,
+                      "reduced_int8": K6_PATH, "product": K1_PATH}),
+    "retrieval": (("--papers", "400"), {"build": K1_PATH, "exact": K1_PATH, "int8": K3_PATH,
+                                        "product": K1_PATH}),
+    "agent": (("--papers", "400"), {"responses": K1_PATH, "chat": K1_PATH}),
+    # 275,557 lines: past the 262,144-row threshold, the store picks int8 itself
+    "retrieval_scale": (("--papers", "4400"), {"build": K3_PATH, "product": K3_PATH,
+                                               "exact": K1_PATH, "int8": K3_PATH}),
+}
+EVAL_FUZZ_CASES = "50000"  # the grep router's fuzz on this machine's g++ build
+EVAL_LAUNCHES = {}  # kernel -> launches summed over phase 13's runs
+
+
+def eval_child(out_dir: str) -> int:
+    """Phase 13's drivers one after another in this process (one start and
+    one CUDA context for all), then the grep fuzz; a JSON line per run."""
+    from semtools_tpu_torch.evals.__main__ import main as evals
+
+    for name, (args, _) in EVAL_RUNS.items():
+        t0 = time.perf_counter()
+        rc = evals([name.split("_")[0], *args, "--out", str(Path(out_dir) / name)])
+        print(json.dumps({"eval_run": name, "rc": rc, "wall_s": time.perf_counter() - t0}),
+              flush=True)
+        if rc:
+            return rc
+    return evals(["fuzz_grep", "--cases", EVAL_FUZZ_CASES])
+
+
+def eval_result(name: str, out: Path, walls: dict) -> dict:
+    """One run's results, its launches checked against its passes' kernels."""
+    driver = name.split("_")[0]
+    result = json.loads((out / name / f"RESULTS_{driver.upper()}.json").read_text())
+    if result["device"].get("type") != "cuda":
+        raise AssertionError(f"phase 13: {name} ran on {result['device']}")
+    launches = result["launches"]
+    for pass_name, counts in launches["by_pass"].items():
+        log(f"eval {name}: pass {pass_name}: launches {counts}")
+    missing = [f"{k} ({p})" for p, ks in EVAL_RUNS[name][1].items() for k in ks
+               if not launches["by_pass"].get(p, {}).get(k)]
+    if missing:
+        raise AssertionError(f"phase 13: {name} never launched {missing}")
+    for k, v in launches["total"].items():
+        EVAL_LAUNCHES[k] = EVAL_LAUNCHES.get(k, 0) + v
+    build = result.get("workspace_build_seconds")
+    log(f"eval {name}: {walls[name]:.1f} s"
+        + (f", workspace build {build:.3f} s" if build is not None else "") + f" ({CARD})")
+    return result
+
+
+def committed(path: str) -> dict:
+    return json.loads((REPO / path).read_text())
+
+
+def no_seconds(record: dict) -> dict:
+    return {k: v for k, v in record.items() if k != "seconds"}
+
+
+def eval_realtext(out: Path, walls: dict) -> None:
+    """Doc-hits and grep as the JAX package's committed results; int8 and the
+    reference's "reduced_int8" recall 1.0 as there; IVF-PQ's logged."""
+    r = eval_result("realtext", out, walls)
+    want = {q["question"]: q for q in committed(
+        "benchmarks/realtext/RESULTS_REALTEXT.json")["per_question"]}
+    for q in r["per_question"]:
+        w = want[q["question"]]
+        if q["kind"] == "grep":
+            if no_seconds(q) != no_seconds(w):
+                raise AssertionError(f"phase 13: realtext {q['question']}: {q} against {w}")
+            continue
+        if (q["top_docs"], q["doc_hit_at_10"]) != (w["top_docs"], w["doc_hit_at_10"]):
+            raise AssertionError(f"phase 13: realtext {q['question']}: docs {q['top_docs']} "
+                                 f"against {w['top_docs']}")
+        rec = q["tier_recall_at_10"]
+        if rec["int8"] != 1.0 or rec["reduced_int8"] != 1.0:
+            raise AssertionError(f"phase 13: realtext {q['question']}: recall {rec}")
+        log(f"eval realtext {q['question']}: recall@10 {rec} (JAX package, CPU: "
+            f"{w['tier_recall_at_10']}), {q['seconds'] * 1e3:.2f} ms")
+    s = r["summary"]
+    log(f"eval realtext: tiers {r['tiers']}; mean recall@10 {s['mean_tier_recall_at_10']}, "
+        f"reduced-64d {r['extra_tier_recall_at_10']['reduced64d']['mean']}; doc-hit@10 "
+        f"{s['mean_doc_hit_at_10']}; grep {s['grep_exact_vs_python_re']}/{s['grep_questions']}; "
+        f"semantic {s['mean_semantic_seconds'] * 1e3:.2f} ms mean; batched "
+        f"{s['batched']['queries_per_sec']:.1f} queries/s, agreement "
+        f"{s['batched']['mean_agreement_with_exact']} ({CARD})")
+
+
+def eval_retrieval(out: Path, walls: dict, name: str = "retrieval") -> dict:
+    """The tolerant int8 agreement 1.0 (the pass rule) beside the reference's
+    rounded one (logged); at 400 papers precision and grep as committed."""
+    r = eval_result(name, out, walls)
+    tol = r["tolerant_agreement_at_10"]
+    if tol["mean_int8"] != 1.0 or tol["mean_batched"] != 1.0:
+        raise AssertionError(f"phase 13: {name}: tolerant agreement {tol}")
+    if name == "retrieval":
+        want = {q["question"]: q for q in committed(
+            "benchmarks/arxiv/RESULTS_RETRIEVAL.json")["per_question"]}
+        for q in r["per_question"]:
+            w = want[q["question"]]
+            keys = (("files_matched", "complete") if q["kind"] == "grep"
+                    else ("doc_precision_at_10",))
+            if any(q[k] != w[k] for k in keys):
+                raise AssertionError(f"phase 13: retrieval {q['question']}: {q} against {w}")
+    for q in r["per_question"]:
+        extra = (f"precision {q['doc_precision_at_10']}, int8 agreement rounded "
+                 f"{q['int8_tier_agreement_at_10']} / tolerant {tol['int8'][q['question']]}, "
+                 f"batched rounded {q['batched_agreement_at_10']} / tolerant "
+                 f"{tol['batched'][q['question']]}" if q["kind"] == "semantic"
+                 else f"grep {q['files_matched']} files, complete {q['complete']}")
+        log(f"eval {name} {q['question']}: {q['seconds'] * 1e3:.2f} ms; {extra}")
+    b = r["batched_queries_file"]
+    log(f"eval {name}: {r['corpus']['papers']} papers, {r['corpus']['lines']} lines, tier "
+        f"{r['tier']}; build {r['workspace_build_seconds']:.3f} s; batched "
+        f"{b['queries_per_sec']:.1f} queries/s ({b['seconds_total'] * 1e3:.2f} ms for "
+        f"{b['queries']}); {CARD}")
+    return r
+
+
+def eval_agent(out: Path, walls: dict) -> None:
+    """Every record as committed; each transcript as committed once the corpus
+    root is replaced, distances within TOL, near-ties free to swap."""
+    from semtools_tpu_torch.evals.common import transcript_difference
+
+    r = eval_result("agent", out, walls)
+    ref = committed("benchmarks/arxiv/RESULTS_AGENT.json")
+    agg = r["aggregate"]
+    if (agg["total_citations_valid"], agg["total_citations"], agg["answered"],
+            agg["fault_injection_ok"], agg["fault_injection_crashes"]) != (108, 108, 30, 20, 0):
+        raise AssertionError(f"phase 13: agent aggregate {agg}")
+    if [no_seconds(q) for q in r["per_question"]] != [no_seconds(q) for q in ref["per_question"]]:
+        raise AssertionError("phase 13: agent per-question records differ from the committed")
+    if r["fault_injection"] != ref["fault_injection"]:
+        raise AssertionError("phase 13: agent fault records differ from the committed")
+    root_re = re.compile(r"(/\S*?semtools_agent_corpus_[^/\s]+)")
+    answers = REPO / "benchmarks" / "arxiv" / "answers"
+    n = 0
+    for want_path in sorted(answers.glob("*/*.txt")):
+        want = want_path.read_text()
+        got = (out / "agent" / "answers" / want_path.parent.name / want_path.name).read_text()
+        found = root_re.search(want)
+        diff = transcript_difference(got, want, r["corpus_root"],
+                                     found.group(1) if found else "<none>", TOL)
+        if diff:
+            raise AssertionError(f"phase 13: agent transcript {want_path.parent.name}/"
+                                 f"{want_path.name}: {diff}")
+        n += 1
+    secs = [q["seconds"] for q in r["per_question"]]
+    log(f"eval agent: {agg['total_citations_valid']}/{agg['total_citations']} citations valid, "
+        f"answered {agg['answered']}, faults {agg['fault_injection_ok']}/"
+        f"{agg['fault_injection_runs']}, {n} transcripts as committed; wall "
+        f"{agg['wall_seconds']:.3f} s, per question {min(secs) * 1e3:.1f}-"
+        f"{max(secs) * 1e3:.1f} ms ({CARD})")
+
+
+def eval_phase() -> None:
+    """Phase 13: the evaluation drivers and the grep fuzz in a child process
+    on the card; their launches go to EVAL_LAUNCHES."""
+    t0 = time.perf_counter()
+    root = REPO / "chiprun_out" / "evals"
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SEMTOOLS_")}
+    env.update(SEMTOOLS_TPU_NO_FETCH="1", SEMTOOLS_TPU_ALLOW_FALLBACK="1", PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--eval-child",
+                           str(root)], env=env, cwd=str(REPO), stdin=subprocess.DEVNULL,
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 13 exited {proc.returncode}: {proc.stdout[-2000:]}"
+                             f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    walls = {r["eval_run"]: r["wall_s"] for r in
+             (json.loads(ln) for ln in lines if ln.startswith('{"eval_run"'))}
+    eval_realtext(root, walls)
+    eval_retrieval(root, walls)
+    eval_agent(root, walls)
+    scale = eval_retrieval(root, walls, "retrieval_scale")
+    if scale["tier"] != "int8-mxu-scan":
+        raise AssertionError(f"phase 13: {scale['corpus']['lines']} lines served from "
+                             f"{scale['tier']}, not the int8 tier")
+    log(f"eval {lines[-1]}")
+    log(f"eval: phase 13 done in {time.perf_counter() - t0:.1f} s ({CARD})")
+
+
 def main() -> int:
     if not (REPO / "semtools_tpu_torch").is_dir() or not (REPO / "cpp").is_dir():
         print("error: run chip_smoke.py from a checkout of the repository", file=sys.stderr)
@@ -3056,6 +3265,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--sharded-child"]:
         return sharded_child(sys.argv[2])
+    if sys.argv[1:2] == ["--eval-child"]:
+        return eval_child(sys.argv[2])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
@@ -3118,6 +3329,7 @@ def main() -> int:
                     os.environ["HOME"] = old_home
         log(f"parse: done in {time.perf_counter() - t0:.1f} s ({card})")
     soak_phase()
+    eval_phase()
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "semtools_tpu"))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
@@ -3149,6 +3361,7 @@ def main() -> int:
             "ask_launches": ASK_LAUNCHES.get(name, 0),
             "sharded_launches": SHARDED_LAUNCHES.get(name, 0),
             "soak_launches": SOAK_LAUNCHES.get(name, 0),
+            "eval_launches": EVAL_LAUNCHES.get(name, 0),
         })
     for name, r in probes.items():  # launches on each probe module's own run
         summary["kernels"].append({
@@ -3161,6 +3374,7 @@ def main() -> int:
             "ask_launches": ASK_LAUNCHES.get(name, 0),
             "sharded_launches": SHARDED_LAUNCHES.get(name, 0),
             "soak_launches": SOAK_LAUNCHES.get(name, 0),
+            "eval_launches": EVAL_LAUNCHES.get(name, 0),
         })
     log(f"stream_roof_gbps: {roof:.1f} ({card or 'card name and power limit unavailable'})")
     log(card or "nvidia-smi: name and power limit unavailable")

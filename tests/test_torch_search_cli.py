@@ -424,6 +424,58 @@ def test_port_soak_never_imports_jax(tmp_path):
     assert json.loads(journal.read_text().splitlines()[0]) == {"op": "ready", "phase": "done"}
 
 
+def test_port_evals_never_import_jax(tmp_path):
+    """The three evaluation drivers at a tiny size (three real-text documents
+    copied to a temporary ``--corpus``, and 8 papers) and the grep fuzz, in
+    one child that sees only ``semtools_tpu_torch/`` and ``cpp/``: no
+    ``jax``, ``jaxlib``, ``semtools_tpu*`` or ``httpx`` module loaded."""
+    import shutil
+
+    root = tmp_path / "port_only"
+    shutil.copytree(REPO / "semtools_tpu_torch", root / "semtools_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__", "_build"))
+    shutil.copytree(REPO / "cpp", root / "cpp")
+    realtext = REPO / "benchmarks" / "realtext"
+    docs = ("argparse", "json", "socket")
+    (tmp_path / "rt" / "corpus").mkdir(parents=True)
+    for doc in docs:
+        shutil.copy(realtext / "corpus" / f"{doc}.txt", tmp_path / "rt" / "corpus")
+    manifest = json.loads((realtext / "MANIFEST.json").read_text())
+    manifest["documents"] = {d: manifest["documents"][d] for d in docs}
+    (tmp_path / "rt" / "MANIFEST.json").write_text(json.dumps(manifest))
+    out = tmp_path / "out"
+    script = (
+        "import contextlib, io, json, sys\n"
+        "from semtools_tpu_torch.evals.__main__ import main\n"
+        "runs = [\n"
+        f"    ['realtext', '--device', 'cpu', '--corpus', {str(tmp_path / 'rt' / 'corpus')!r},\n"
+        f"     '--out', {str(out / 'rt')!r}],\n"
+        f"    ['retrieval', '--device', 'cpu', '--papers', '8', '--out', {str(out / 'rr')!r}],\n"
+        f"    ['agent', '--device', 'cpu', '--papers', '8', '--out', {str(out / 'ag')!r}],\n"
+        "    ['fuzz_grep', '--cases', '200'],\n"
+        "]\n"
+        "for argv in runs:\n"
+        "    with contextlib.redirect_stdout(io.StringIO()):\n"
+        "        assert main(argv) == 0, argv\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'semtools_tpu', 'httpx'))\n"
+        "assert not bad, bad\n"
+        "print('NO_JAX_OK')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SEMTOOLS_")}
+    env.update(PYTHONPATH=str(root), HOME=str(tmp_path / "home"), SEMTOOLS_TPU_ALLOW_FALLBACK="1")
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path), env=env,
+                          capture_output=True, text=True, stdin=subprocess.DEVNULL, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("NO_JAX_OK")
+    rt = json.loads((out / "rt" / "RESULTS_REALTEXT.json").read_text())
+    assert rt["corpus"]["documents"] == 3 and rt["summary"]["semantic_questions"] == 11
+    assert json.loads((out / "rr" / "RESULTS_RETRIEVAL.json").read_text())["corpus"]["papers"] == 8
+    agent = json.loads((out / "ag" / "RESULTS_AGENT.json").read_text())
+    assert agent["aggregate"]["fault_injection_crashes"] == 0
+    assert len(list((out / "ag" / "answers").glob("*/*.txt"))) == 30
+
+
 def test_port_probes_never_import_jax(tmp_path):
     """Every module of ``semtools_tpu_torch.probes`` (and ``ops.probes``),
     imported and run on the CPU in a child that sees only the port, loads
