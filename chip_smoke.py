@@ -206,6 +206,23 @@ exits non-zero without them. Phases:
    the native scanner. Each pass must launch its kernels (the run's counts
    from zero, by pass); the sums are each kernel's ``eval_launches``; walls
    and per-question times are logged.
+14. the int4 tier's calibration probes (``semtools_tpu_torch.probes``):
+   ``int4_tier`` at 2,097,152 and 10,002,432 rows of its clustered corpus
+   (made on the card; the deep candidates at 4 and 6 sigmas, K5 at depths
+   40-1,024 up to recall 1.0, K5's time at k 10-256, the int8 scan's at k
+   40; its records logged and written to ``chiprun_out/probe_int4_tier.json``),
+   then ``int4_check`` (K5 plain and masked against a numpy lexsort oracle
+   at 60,000 rows, which must print OK; its time at 10M rows); while they
+   run, the local-parse fuzz (``semtools_tpu_torch.parse.fuzz`` at
+   ``FUZZ_ARGS``) in a child process, which must exit 0 with no finding.
+   At 2M rows the first 8 queries' 6-sigma candidate sets and K5's rows at
+   every depth swept must equal the plain versions on the card; at either
+   size a batch holding a query under recall 1.0 at 6 sigmas is held the
+   same way and the query logged (a shortfall of the margin, not gated).
+   K5's phase-2 device ms at k 10-256 (10M rows) and the 6-sigma recall at
+   both sizes are logged; each kernel of ``TIER_PATH`` must launch (the
+   counts from zero before each probe run; their sums are each kernel's
+   ``tier_launches``).
 
 Phases 6-10 check their hits against a plain exact scan of the same
 embeddings on the card (tolerance as in phase 2), and every kernel of each
@@ -215,7 +232,8 @@ timed after the build. The last line of stdout is ``{"ok": true,
 "device": {...}}``; the lines before it are the card's name and power limit,
 the ``stream_roof_gbps`` line, and the per-kernel JSON summary (with
 ``device_ms``, ``floor_ms``, ``ask_launches``, ``sharded_launches``,
-``soak_launches`` and ``eval_launches`` beside the contract's keys;
+``soak_launches``, ``eval_launches`` and ``tier_launches`` beside the
+contract's keys;
 a probe's entry is the call named in PROBES).
 """
 
@@ -3252,6 +3270,178 @@ def eval_phase() -> None:
     log(f"eval: phase 13 done in {time.perf_counter() - t0:.1f} s ({CARD})")
 
 
+# -- phase 14: the int4 tier's calibration probes and the local-parse fuzz -----------
+
+TIER_PATH = ("int4_sims_max", "select_subtiles", "int4_cutoff_counts", "int4_extract_above",
+             "int4_tilemax", "int4_rescan_topk", "int4_tilemax_masked",
+             "int4_rescan_topk_masked", "int8_tilemax", "int8_rescan_topk")
+TIER_CHECK_SIGMA = 6.0  # the tier's default margin: its candidate sets are held on the card
+FUZZ_ARGS = ("--cases", "200", "--seed", "1")  # as the JAX package's CI runs its fuzz
+TIER_LAUNCHES = {}  # kernel -> launches on phase 14's probe runs
+
+
+def tier_run(fn):
+    """``fn()`` with the counts from zero, its launches added to TIER_LAUNCHES."""
+    from semtools_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    result = fn()
+    for k, v in kernels.launch_counts().items():
+        TIER_LAUNCHES[k] = TIER_LAUNCHES.get(k, 0) + v
+    return result
+
+
+def tier_quiet(fn):
+    """``fn()`` with the probe's record lines logged as ``tier:`` lines."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn()
+    for ln in buf.getvalue().splitlines():
+        log(f"tier: {ln}")
+    return result
+
+
+def plain_deep_batch(corpus, s, n):
+    """The plain sweep and selection on the card for the recall queries [s,
+    s + 8) at TIER_CHECK_SIGMA: [Q, cap] rows."""
+    from semtools_tpu_torch.ops import int4_scan as i4
+    from semtools_tpu_torch.ops.int8_scan import quantize_global
+
+    q8 = quantize_global(corpus.qs[s : s + 8])[0].contiguous()
+    return i4.select_candidates_reference(q8, *i4.sims_max_reference(q8, corpus.p4, n), n,
+                                          margin_sigmas=TIER_CHECK_SIGMA)
+
+
+def tier_checks(corpus, n, deep, depths, first: bool) -> float:
+    """The kernels' answers of the tier probe's run against the plain
+    versions on the card: at ``first`` (2M rows) the 6-sigma candidate sets
+    of the first 8 queries and K5's rows at each depth swept; at any size,
+    each batch holding a query under recall 1.0 at 6 sigmas (the shortfall
+    is then the policy's). Launches nothing. Returns the 6-sigma recall."""
+    import torch
+
+    from semtools_tpu_torch.ops import int4_scan as i4
+    from semtools_tpu_torch.ops import kernels
+    from semtools_tpu_torch.ops.fused_scan import select_subtiles
+    from semtools_tpu_torch.ops.int8_scan import quantize_global
+    from semtools_tpu_torch.probes import int4_tier
+
+    before = kernels.launch_counts()
+    calls = deep[TIER_CHECK_SIGMA]
+    hits = []
+    for ids, s in zip(calls, range(0, int4_tier.Q_RECALL, 8)):
+        got = ids.cpu().numpy()
+        hits += int4_tier.query_hits([r[r < n] for r in got], corpus.oracle[s : s + 8])
+    short = {r // 8 for r, h in enumerate(hits) if h < int4_tier.K}
+    for b in sorted(short | ({0} if first else set())):
+        same_candidates(f"tier n={n} {TIER_CHECK_SIGMA} sigmas queries {8 * b}-{8 * b + 7}",
+                        calls[b], plain_deep_batch(corpus, 8 * b, n), n)
+        for r in range(8 * b, min(8 * b + 8, len(hits))):
+            if hits[r] < int4_tier.K:
+                cand = calls[b][r - 8 * b]
+                log(f"tier: n={n} query {r}: {hits[r]}/{int4_tier.K} of its oracle rows among "
+                    f"its {int((cand < n).sum())} candidates (cap {cand.shape[0]}, policy "
+                    f"{i4.int4_candidate_cap(n)}); the kernel's set equals the plain "
+                    f"version's: the margin's shortfall, not the kernel's")
+    if first:
+        q8 = quantize_global(corpus.qs[:8])[0].contiguous()
+        sub = i4.tilemax_reference(q8, corpus.p4, n)
+        for depth, idx in depths.items():
+            want = i4.rescan_topk_reference(q8, corpus.p4, n,
+                                            select_subtiles(sub, min(depth, sub.shape[1])),
+                                            depth)[1]
+            if not torch.equal(idx[:8], want):
+                raise AssertionError(f"tier n={n}: K5's rows at depth {depth} differ from the "
+                                     f"plain phases'")
+        log(f"tier: n={n}: the first 8 queries' {TIER_CHECK_SIGMA}-sigma candidate sets and "
+            f"K5's rows at depths {list(depths)} equal the plain versions'")
+    if kernels.launch_counts() != before:
+        raise AssertionError("tier: the plain checks launched a kernel")
+    return sum(hits) / (len(hits) * int4_tier.K)
+
+
+def k5_by_depth(p4, n) -> None:
+    """K5b's rescan and ``sel`` device ms (torch.profiler) at the perf
+    sweep's k, on the tier corpus, Q 8: K5's phase 2 against its depth."""
+    from semtools_tpu_torch.ops import int4_scan as i4
+    from semtools_tpu_torch.probes import int4_tier
+
+    q8 = int4_tier.perf_queries(p4.device)
+    parts = []
+    for k in int4_tier.PERF_KS:
+        fn = lambda: i4.int4_two_phase(q8, p4, n, k)  # noqa: E731
+        parts.append(f"k {k}: rescan {device_ms(fn, 'rescan_topk_kernel'):.4f}, sel "
+                     f"{device_ms(fn, 'select_kernel'):.4f}, tile max "
+                     f"{device_ms(fn, 'sweep_kernel'):.4f}")
+    log(f"time: tier n={n} Q 8 device ms (torch.profiler): " + "; ".join(parts) + f" ({CARD})")
+
+
+def tier_phase() -> None:
+    """Phase 14: the tier probe at both sizes and int4_check on the card
+    (their launches to TIER_LAUNCHES), the kernels' answers held against
+    the plain versions, and the local-parse fuzz in a child meanwhile."""
+    import torch
+
+    from semtools_tpu_torch.probes import int4_check, int4_tier
+
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SEMTOOLS_")}
+    env.update(PYTHONPATH=str(REPO))
+    fuzz = subprocess.Popen([sys.executable, "-m", "semtools_tpu_torch.parse.fuzz", *FUZZ_ARGS,
+                             "--out", str(REPO / "chiprun_out" / "fuzz_failures")],
+                            env=env, cwd=str(REPO), stdin=subprocess.DEVNULL,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        dev = torch.device("cuda")
+        records, recall = [], {}
+        for i, n in enumerate(int4_tier.SIZES):
+            t1 = time.perf_counter()
+            corpus = int4_tier.build(n, dev)
+            torch.cuda.synchronize()
+            log(f"tier: n={n} built (generated, packed, oracle) in "
+                f"{time.perf_counter() - t1:.2f} s")
+
+            def sweeps():
+                deep = int4_tier.deep_sweep(corpus.p4, corpus.qs, corpus.oracle, n, records)
+                depths = int4_tier.recall_sweep(corpus.p4, corpus.scale, corpus.qs,
+                                                corpus.oracle, n, records)
+                int4_tier.perf_sweep(corpus.p4, n, records)
+                return deep, depths
+
+            deep, depths = tier_run(lambda: tier_quiet(sweeps))
+            recall[n] = tier_checks(corpus, n, deep, depths, first=i == 0)
+            if i == len(int4_tier.SIZES) - 1:
+                k5_by_depth(corpus.p4, n)
+            del corpus, deep, depths
+            tier_run(lambda: tier_quiet(lambda: int4_tier.int8_ref(n, dev, records)))
+        (REPO / "chiprun_out").mkdir(exist_ok=True)
+        (REPO / "chiprun_out" / "probe_int4_tier.json").write_text(json.dumps(records, indent=1))
+        checks, _ = tier_run(lambda: int4_check.check(int4_check.CHECK_ROWS, dev))
+        for r in checks:
+            log(f"tier: int4_check {json.dumps(r)}")
+            if not r["ok"]:
+                raise AssertionError(f"phase 14: int4_check failed: {r}")
+        thr = tier_run(lambda: int4_check.throughput(int4_check.N_INT4, dev))
+        log(f"tier: int4_check {json.dumps(thr)} ({CARD})")
+        out, _ = fuzz.communicate(timeout=600)
+    finally:
+        fuzz.kill()
+    for ln in out.splitlines():
+        if ln.startswith(("[bomb]", "[FINDING]", "  FINDING")) or " cases in " in ln:
+            log(f"fuzz: {ln}")
+    summary = [ln for ln in out.splitlines() if " cases in " in ln]
+    if fuzz.returncode != 0 or not summary or not summary[-1].endswith(" 0 findings"):
+        raise AssertionError(f"phase 14: the local-parse fuzz exited {fuzz.returncode}: "
+                             f"{out[-2000:]}")
+    missing = [k for k in TIER_PATH if not TIER_LAUNCHES.get(k)]
+    if missing:
+        raise AssertionError(f"phase 14: the probes never launched {missing}")
+    log(f"tier: {TIER_CHECK_SIGMA}-sigma recall@10 " + ", ".join(
+        f"{recall[n]:.4f} at {n} rows" for n in recall) + f"; launches "
+        f"{ {k: v for k, v in TIER_LAUNCHES.items() if v} }")
+    log(f"tier: phase 14 done in {time.perf_counter() - t0:.1f} s ({CARD})")
+
+
 def main() -> int:
     if not (REPO / "semtools_tpu_torch").is_dir() or not (REPO / "cpp").is_dir():
         print("error: run chip_smoke.py from a checkout of the repository", file=sys.stderr)
@@ -3330,6 +3520,7 @@ def main() -> int:
         log(f"parse: done in {time.perf_counter() - t0:.1f} s ({card})")
     soak_phase()
     eval_phase()
+    tier_phase()
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "semtools_tpu"))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
@@ -3362,6 +3553,7 @@ def main() -> int:
             "sharded_launches": SHARDED_LAUNCHES.get(name, 0),
             "soak_launches": SOAK_LAUNCHES.get(name, 0),
             "eval_launches": EVAL_LAUNCHES.get(name, 0),
+            "tier_launches": TIER_LAUNCHES.get(name, 0),
         })
     for name, r in probes.items():  # launches on each probe module's own run
         summary["kernels"].append({
@@ -3375,6 +3567,7 @@ def main() -> int:
             "sharded_launches": SHARDED_LAUNCHES.get(name, 0),
             "soak_launches": SOAK_LAUNCHES.get(name, 0),
             "eval_launches": EVAL_LAUNCHES.get(name, 0),
+            "tier_launches": TIER_LAUNCHES.get(name, 0),
         })
     log(f"stream_roof_gbps: {roof:.1f} ({card or 'card name and power limit unavailable'})")
     log(card or "nvidia-smi: name and power limit unavailable")

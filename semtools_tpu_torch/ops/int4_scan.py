@@ -96,9 +96,14 @@ _QUANT_CHUNK_ELEMS = 1 << 24  # bounds quantize temporaries to ~64 MB f32
 # -- host side: packing and the tier's knobs ----------------------------------
 
 
-def pack_int4(q: np.ndarray) -> np.ndarray:
-    """[N, D] int8 values in [-8, 7] -> [N, D/2] packed int8 (split-half,
-    low nibble biased by +8)."""
+def pack_int4(q):
+    """[N, D] integer values in [-8, 7] -> [N, D/2] packed int8 (split-half,
+    low nibble biased by +8). Numpy in, numpy out; a tensor (of any dtype
+    holding those values) in, a tensor on its device out."""
+    if isinstance(q, torch.Tensor):
+        qi = q.to(torch.int32)
+        h = qi.shape[1] // 2
+        return (((qi[:, :h] + 8) & 0xF) | ((qi[:, h:] & 0xF) << 4)).to(torch.uint8).view(torch.int8)
     q = np.asarray(q, np.int8)
     d = q.shape[1]
     lo = (q[:, : d // 2].astype(np.int16) + 8).astype(np.uint8) & 0xF

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import argparse
 import subprocess
+import time
 from dataclasses import dataclass
 from typing import Callable, List, Optional
 
@@ -63,8 +64,8 @@ def card_line(device: torch.device) -> str:
     return f"card: {lines[0] if lines else torch.cuda.get_device_name(device)}"
 
 
-def generator(device: torch.device) -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(SEED)
+def generator(device: torch.device, seed: int = SEED) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def unit_rows(n: int, gen: torch.Generator, device: torch.device, transform) -> torch.Tensor:
@@ -77,25 +78,37 @@ def unit_rows(n: int, gen: torch.Generator, device: torch.device, transform) -> 
     return torch.cat(parts)
 
 
+def timed(fn, device: torch.device, reps: int = 1):
+    """(the last call's result, host ms, CUDA-events ms) of ``reps``
+    back-to-back calls, each time a mean per call and both ended by a
+    synchronise; the times are None off the card."""
+    if device.type != "cuda":
+        return fn(), None, None
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    return out, wall, start.elapsed_time(end) / reps
+
+
+def least(times: List[Optional[float]]):
+    """The least of times from :func:`timed`, or "not measured"."""
+    return NOT_MEASURED if times[0] is None else min(times)
+
+
 def time_ms(fn, device: torch.device) -> Optional[float]:
     """Per call: the least over TRIALS of CUDA events around REPEATS
     back-to-back calls; None off the card."""
-    if device.type != "cuda":
-        fn()
-        return None
     fn()
-    torch.cuda.synchronize(device)
-    best = float("inf")
-    for _ in range(TRIALS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(REPEATS):
-            fn()
-        end.record()
-        torch.cuda.synchronize(device)
-        best = min(best, start.elapsed_time(end) / REPEATS)
-    return best
+    if device.type != "cuda":
+        return None
+    return min(timed(fn, device, REPEATS)[2] for _ in range(TRIALS))
 
 
 def measure(cases: List[Case], device: torch.device) -> None:

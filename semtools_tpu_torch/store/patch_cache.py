@@ -364,13 +364,7 @@ def _device_build_corpus(mm, ranges, cap: int, kind: str, rotation, device, mesh
     for c0, x in chunks():
         y = x @ w if w is not None else pad_columns(x, kind, padded_dim(kind, d))
         q = torch.div(y, scale_t).round_().clamp_(-lim, lim)
-        if kind == "int4":
-            qi = q.to(torch.int32)
-            h = qi.shape[1] // 2
-            packed = ((qi[:, :h] + 8) & 0xF) | ((qi[:, h:] & 0xF) << 4)
-            rows = packed.to(torch.uint8).view(torch.int8)
-        else:
-            rows = q.to(torch.int8)
+        rows = pack_int4(q) if kind == "int4" else q.to(torch.int8)
         if w is not None:
             resid = torch.ceil(residual(x, y) / rscale_t).clamp_(0, 127).to(torch.int8)
             rows = torch.cat([rows, resid[:, None]], dim=1)

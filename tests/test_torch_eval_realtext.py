@@ -48,9 +48,16 @@ IVF_QUERY_TOL = 0.1
 
 
 def child_env(home: Path, **extra) -> dict:
+    """The drivers' environment. The reference's ``auto`` scan and embed
+    routes are timed (a cold store scores on the host when its link probe
+    says an upload would be slow, and the host scan's distances differ from
+    the device's by an ulp, which can swap near-tied hits), so a loaded
+    machine would pick its route by chance: both are pinned to ``device``,
+    the route of the committed results and the port's only one."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("SEMTOOLS_")}
     env.update(HOME=str(home), SEMTOOLS_TPU_PLATFORM="cpu", SEMTOOLS_TPU_NO_FETCH="1",
-               SEMTOOLS_TPU_ALLOW_FALLBACK="1", PYTHONDONTWRITEBYTECODE="1",
+               SEMTOOLS_TPU_ALLOW_FALLBACK="1", SEMTOOLS_TPU_SCAN="device",
+               SEMTOOLS_TPU_EMBED="device", PYTHONDONTWRITEBYTECODE="1",
                PYTHONPATH=str(REPO), **extra)
     return env
 

@@ -426,9 +426,13 @@ def test_port_soak_never_imports_jax(tmp_path):
 
 def test_port_evals_never_import_jax(tmp_path):
     """The three evaluation drivers at a tiny size (three real-text documents
-    copied to a temporary ``--corpus``, and 8 papers) and the grep fuzz, in
-    one child that sees only ``semtools_tpu_torch/`` and ``cpp/``: no
-    ``jax``, ``jaxlib``, ``semtools_tpu*`` or ``httpx`` module loaded."""
+    copied to a temporary ``--corpus``, and 8 papers), the grep fuzz and the
+    int4 tier probes (``probes.int4_tier`` and ``probes.int4_check``, 3,000
+    rows, ``--device cpu``), in one child that sees only
+    ``semtools_tpu_torch/`` and ``cpp/``: no ``jax``, ``jaxlib``,
+    ``semtools_tpu*`` or ``httpx`` module loaded; and the local-parse fuzz
+    (``parse.fuzz``, 2 cases a format) in a child of its own (it sets an
+    address-space limit), which loads neither those nor torch nor numpy."""
     import shutil
 
     root = tmp_path / "port_only"
@@ -457,6 +461,11 @@ def test_port_evals_never_import_jax(tmp_path):
         "for argv in runs:\n"
         "    with contextlib.redirect_stdout(io.StringIO()):\n"
         "        assert main(argv) == 0, argv\n"
+        "from semtools_tpu_torch.probes import int4_check, int4_tier\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    assert int4_tier.main(['--device', 'cpu', '--rows', '3000', '--out',\n"
+        f"                           {str(out / 'tier.json')!r}]) == 0\n"
+        "    assert int4_check.main(['--device', 'cpu', '--rows', '3000']) == 0\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'semtools_tpu', 'httpx'))\n"
         "assert not bad, bad\n"
@@ -474,6 +483,27 @@ def test_port_evals_never_import_jax(tmp_path):
     agent = json.loads((out / "ag" / "RESULTS_AGENT.json").read_text())
     assert agent["aggregate"]["fault_injection_crashes"] == 0
     assert len(list((out / "ag" / "answers").glob("*/*.txt"))) == 30
+    assert {r["probe"] for r in json.loads((out / "tier.json").read_text())} == {
+        "int4_deep_recall", "int4_candidate_recall", "int4_throughput", "int8_ref_throughput"}
+    fuzz = (
+        "import runpy, sys\n"
+        f"sys.argv = ['fuzz', '--cases', '2', '--out', {str(out / 'fuzz')!r}]\n"
+        "code = 0\n"
+        "try:\n"
+        "    runpy.run_module('semtools_tpu_torch.parse.fuzz', run_name='__main__',\n"
+        "                     alter_sys=True)\n"
+        "except SystemExit as e:\n"
+        "    code = e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'semtools_tpu', 'httpx', 'torch', 'numpy'))\n"
+        "assert not bad, bad\n"
+        "print('NO_JAX_OK')\n"
+        "sys.exit(code)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", fuzz], cwd=str(tmp_path), env=env,
+                          capture_output=True, text=True, stdin=subprocess.DEVNULL, timeout=120)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("NO_JAX_OK") and " 0 findings" in proc.stdout
 
 
 def test_port_probes_never_import_jax(tmp_path):
