@@ -223,6 +223,24 @@ exits non-zero without them. Phases:
    both sizes are logged; each kernel of ``TIER_PATH`` must launch (the
    counts from zero before each probe run; their sums are each kernel's
    ``tier_launches``).
+15. the store at serving scale (``semtools_tpu_torch.probes``), one child
+   process on the card a driver, the free disk logged before each (too
+   little fails the phase): ``ann_scale`` at 10M x 256 (2,000 clusters, 50
+   queries; its corpus is made by numpy on the host, so it runs beside the
+   others): recall@10 at least 0.98, the build's stages, the probe and
+   re-rank a query and the queries that missed logged; in turn
+   ``capacity_ladder`` at a 512 MiB budget (``LADDER_BUDGET``: the int8,
+   int4 and reduced-64d hops, 1.74M, 3.73M and 7.46M rows, Q 32, k 10, one
+   rep; its policy tables, and the 4 GiB one from a CPU child, logged) and
+   at 16 MiB (``RED32_BUDGET``: the reduced-32d hops, forced and by the
+   policy, 233k and 283k rows): every hop names its tier, recall@10 1.0,
+   distances within 1e-5 of the truth pass, threshold mode exact, the int8
+   hop launching K3 and ``sel``, the int4 hop K6, ``sel``, K6c and K6x;
+   ``patch_scale`` at 5,000 x 100 and a 500,000-line document: each update
+   at most two int8 documents, the one-line edit at most 1 KiB, every
+   planted row found; ``ann_incremental`` at 1M rows: the edited row first,
+   the tier ``ivf-pq``, nothing rebuilt. Each step's launches are counted
+   from zero; their sums are each kernel's ``ladder_launches``.
 
 Phases 6-10 check their hits against a plain exact scan of the same
 embeddings on the card (tolerance as in phase 2), and every kernel of each
@@ -232,9 +250,8 @@ timed after the build. The last line of stdout is ``{"ok": true,
 "device": {...}}``; the lines before it are the card's name and power limit,
 the ``stream_roof_gbps`` line, and the per-kernel JSON summary (with
 ``device_ms``, ``floor_ms``, ``ask_launches``, ``sharded_launches``,
-``soak_launches``, ``eval_launches`` and ``tier_launches`` beside the
-contract's keys;
-a probe's entry is the call named in PROBES).
+``soak_launches``, ``eval_launches``, ``tier_launches`` and
+``ladder_launches`` beside the contract's keys; a probe's entry is the call named in PROBES).
 """
 
 from __future__ import annotations
@@ -244,6 +261,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3442,6 +3460,157 @@ def tier_phase() -> None:
     log(f"tier: phase 14 done in {time.perf_counter() - t0:.1f} s ({CARD})")
 
 
+# -- phase 15: the store at serving scale ------------------------------------------
+
+# The ladder's budget: cut from the default 4 GiB so that the phase fits its
+# time (one budget unit, B / 256, is 2,097,152 rows: the int8, int4 and
+# reduced-64d hops hold 1.74M, 3.73M and 7.46M rows); the ladder is budget
+# math, so the binding and the proportions are the default's. The reduced-32d
+# hops re-rank a pool that grows to the whole store (9 passes at 1.86M rows,
+# 134 s a warm batch of 32): they run at 16 MiB (233k and 283k rows).
+LADDER_BUDGET = 512 << 20
+RED32_BUDGET = 16 << 20
+LADDER_COMMON = ("--queries", "32", "--k", "10", "--reps", "1")
+SCALE_CHAIN = (  # (tag, driver, arguments, bytes on disk it needs, timeout s), in turn
+    ("ladder", "capacity_ladder", ("--budget", str(LADDER_BUDGET), *LADDER_COMMON,
+                                   "--hops", "int8,int4,reduced64"),
+     60 * 124_331 * (D * 4 + 8), 480),
+    ("ladder_red32", "capacity_ladder", ("--budget", str(RED32_BUDGET), *LADDER_COMMON,
+                                         "--hops", "reduced32,reduced32auto", "--skip-policy"),
+     73 * 3_885 * (D * 4 + 8), 300),
+    ("patch_scale", "patch_scale", (), 500_000 * (D * 4 + 8), 240),
+    ("patch_scale_single", "patch_scale", ("--single-file",), 500_000 * (D * 4 + 8), 240),
+    ("ann_incremental", "ann_incremental", (), 1_000_000 * (D * 4 + 8), 240),
+)
+ANN_SCALE_DISK = 10_000_000 * D * 4  # its corpus, on disk while the chain runs
+LADDER_LAUNCHES = {}  # kernel -> launches summed over phase 15's drivers
+
+
+def scale_child(name: str, args, out: Path) -> subprocess.Popen:
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SEMTOOLS_")}
+    env.update(PYTHONPATH=str(REPO))
+    return subprocess.Popen([sys.executable, "-m", f"semtools_tpu_torch.probes.{name}", *args,
+                             "--out", str(out)], env=env, cwd=str(REPO),
+                            stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def scale_wait(proc: subprocess.Popen, what: str, out: Path, timeout: int, t0: float) -> list:
+    """A driver's records, once it exits 0; its wall logged."""
+    stdout, stderr = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 15: {what} exited {proc.returncode}: {stdout[-2000:]}"
+                             f"{stderr[-3000:]}")
+    log(f"scale: {what}: {time.perf_counter() - t0:.1f} s wall ({CARD})")
+    return json.loads(out.read_text())
+
+
+def disk_free(need: int, what: str) -> None:
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    log(f"scale: {what}: {free} bytes free in {tmp}, {need} needed")
+    if free < need:
+        raise AssertionError(f"phase 15: {what} needs {need} bytes on disk; {tmp} has {free}")
+
+
+def add_launches(counts: dict) -> None:
+    for k, v in counts.items():
+        LADDER_LAUNCHES[k] = LADDER_LAUNCHES.get(k, 0) + v
+
+
+def scale_phase() -> None:
+    """Phase 15: the four store-scale drivers on the card, one child each:
+    ``ann_scale`` (host-bound: its 10M rows are made by numpy) beside the
+    others, which run in turn; their gates held here, their launches summed
+    into LADDER_LAUNCHES."""
+    from semtools_tpu_torch.probes import ann_scale, capacity_ladder, patch_scale
+
+    t0 = time.perf_counter()
+    out = REPO / "chiprun_out" / "scale"
+    out.mkdir(parents=True, exist_ok=True)
+    disk_free(ANN_SCALE_DISK + max(c[3] for c in SCALE_CHAIN), "ann_scale beside the chain")
+    ann = scale_child("ann_scale", (), out / "ann_scale.json")
+    # the policy at the default budget: budget math only, no store is filled
+    policy = scale_child("capacity_ladder", ("--budget", str(4 << 30), "--skip-measure",
+                                             "--device", "cpu"), out / "policy_4gib.json")
+    runs = {}
+    try:
+        for tag, name, args, need, timeout in SCALE_CHAIN:
+            disk_free(ANN_SCALE_DISK + need, f"{tag} {' '.join(args)}")
+            t1 = time.perf_counter()
+            runs[tag] = scale_wait(scale_child(name, args, out / f"{tag}.json"),
+                                   f"{tag} {' '.join(args)}", out / f"{tag}.json", timeout, t1)
+        runs["policy_4gib"] = scale_wait(policy, "policy at 4 GiB", out / "policy_4gib.json",
+                                         120, t0)
+        runs["ann_scale"] = scale_wait(ann, "ann_scale (beside the chain)",
+                                       out / "ann_scale.json", 600, t0)
+    finally:
+        ann.kill()
+        policy.kill()
+
+    for budget, records in ((4 << 30, runs["policy_4gib"]), (LADDER_BUDGET, runs["ladder"])):
+        for r in records:
+            if r["config"].startswith("capacity_ladder_policy"):
+                log(f"scale: policy at {budget} bytes: {r['label']}: {r['n']} rows -> "
+                    f"{r['serving_tier']} (ann {r['use_ann_tier']})")
+    hops = [r for tag in ("ladder", "ladder_red32") for r in runs[tag]
+            if r["config"] == "capacity_ladder"]
+    if [r["hop"] for r in hops] != list(capacity_ladder.HOPS):
+        raise AssertionError(f"phase 15: the ladder measured {[r['hop'] for r in hops]}")
+    for r in hops:
+        capacity_ladder.check_hop(r)
+        add_launches(capacity_ladder.hop_launches(r))
+        log(f"scale: ladder {r['hop']}: {r['n']} rows (budget {r['budget_bytes']}), "
+            f"{r['serving_tier']}, recall@10 {r['value']}, max |d| err "
+            f"{r['max_abs_dist_err']:.3g}, threshold exact; cold {r['cold_build_and_query_s']} s "
+            f"(slot corpus build {r['slot_corpus_build_s']:.3f}), warm batched "
+            f"{r['warm_batched_s']} s ({r['queries_per_sec']} q/s; pool passes "
+            f"{r['warm_pool_passes']}, pool {r['warm_pool_s']:.4f} s, host re-rank "
+            f"{r['warm_rerank_s']:.4f} s = {100 * r['warm_rerank_share']:.1f}%), single "
+            f"{r['warm_single_query_s']} s, truth {r['truth_pass_s']} s; launches "
+            f"{capacity_ladder.hop_launches(r)} ({CARD})")
+    grows = [r for tag in ("ladder", "ladder_red32") for r in runs[tag] if r.get("event") == "grow"]
+    log("scale: ladder corpora made and upserted: "
+        + ", ".join(f"{r['rows']} rows {r['gen_upsert_s']} s" for r in grows))
+
+    (a,) = runs["ann_scale"]
+    add_launches(a["launches"]["build"])
+    add_launches(a["launches"]["search"])
+    log(f"scale: ann_scale {a['n']} x {a['dim']}, {a['clusters']} clusters, nlist {a['nlist']}, "
+        f"nprobe {a['nprobe']}, depth {a['oversample']}: recall@10 {a['value']} (candidates "
+        f"{a['candidate_recall_at_10']}), build {a['build_seconds']:.2f} s "
+        f"{a['build_stages_s']}, {a['queries_per_sec']:.2f} q/s, probe "
+        f"{1e3 * a['probe_seconds_per_query']:.2f} ms and re-rank "
+        f"{1e3 * a['rerank_seconds_per_query']:.2f} ms a query, synth {a['synth_seconds']:.1f} s, "
+        f"truth {a['truth_seconds']:.1f} s; missed {a['missed']} ({CARD})")
+    if a["value"] < ann_scale.MIN_RECALL:
+        raise AssertionError(f"phase 15: ann_scale recall@10 {a['value']}")
+
+    (inc,) = runs["ann_incremental"]
+    for counts in inc["launches"].values():
+        add_launches(counts)
+    if inc["rebuilt"] or inc["edited_distance"] >= 1e-4:
+        raise AssertionError(f"phase 15: ann_incremental {inc}")
+    log(f"scale: ann_incremental {inc['n']} rows: build {inc['build_s']:.2f} s, warm query "
+        f"{inc['warm_query_seconds']:.4f} s, edit + query {inc['edit_plus_query_s']:.4f} s, "
+        f"warm after {inc['warm_query_after_edit_seconds']:.4f} s; no rebuild, "
+        f"{inc['delta_rows']} rows in the delta ({CARD})")
+
+    for tag in ("patch_scale", "patch_scale_single"):
+        (r,) = runs[tag]
+        patch_scale.check(r)
+        for counts in r["launches"].values():
+            add_launches(counts)
+        shown = {k: v for k, v in r.items() if k not in ("launches", "card")}
+        log(f"scale: {r['config']}: {json.dumps(shown)} ({CARD})")
+    missing = [k for ks in capacity_ladder.HOP_KERNELS.values() for k in ks
+               if not LADDER_LAUNCHES.get(k)]
+    if missing:
+        raise AssertionError(f"phase 15: never launched {missing}")
+    log(f"scale: launches {dict(sorted(LADDER_LAUNCHES.items()))}")
+    log(f"scale: phase 15 done in {time.perf_counter() - t0:.1f} s ({CARD})")
+
+
 def main() -> int:
     if not (REPO / "semtools_tpu_torch").is_dir() or not (REPO / "cpp").is_dir():
         print("error: run chip_smoke.py from a checkout of the repository", file=sys.stderr)
@@ -3521,6 +3690,7 @@ def main() -> int:
     soak_phase()
     eval_phase()
     tier_phase()
+    scale_phase()
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "semtools_tpu"))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
@@ -3554,6 +3724,7 @@ def main() -> int:
             "soak_launches": SOAK_LAUNCHES.get(name, 0),
             "eval_launches": EVAL_LAUNCHES.get(name, 0),
             "tier_launches": TIER_LAUNCHES.get(name, 0),
+            "ladder_launches": LADDER_LAUNCHES.get(name, 0),
         })
     for name, r in probes.items():  # launches on each probe module's own run
         summary["kernels"].append({
@@ -3568,6 +3739,7 @@ def main() -> int:
             "soak_launches": SOAK_LAUNCHES.get(name, 0),
             "eval_launches": EVAL_LAUNCHES.get(name, 0),
             "tier_launches": TIER_LAUNCHES.get(name, 0),
+            "ladder_launches": LADDER_LAUNCHES.get(name, 0),
         })
     log(f"stream_roof_gbps: {roof:.1f} ({card or 'card name and power limit unavailable'})")
     log(card or "nvidia-smi: name and power limit unavailable")

@@ -12,6 +12,8 @@ reads "not measured".
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import subprocess
 import time
 from dataclasses import dataclass
@@ -48,6 +50,22 @@ def parser(description: str, rows: int) -> argparse.ArgumentParser:
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.add_argument("--rows", type=int, default=rows, help=f"corpus rows (default {rows})")
     return p
+
+
+@contextlib.contextmanager
+def environ(**values: str):
+    """The block with ``values`` set in ``os.environ``; the old values (or
+    their absence) come back after it."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def device_of(args) -> torch.device:

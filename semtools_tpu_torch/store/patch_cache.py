@@ -487,10 +487,20 @@ def _write_rows(arr, rows_np: np.ndarray, start: int) -> None:
     arr.narrow(0, start, rows_np.shape[0]).copy_(torch.from_numpy(rows_np))
 
 
+def _upload_index(slots: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Slot indices on ``device`` as the int64 that ``index_copy_`` takes,
+    crossing the bus as int32 (the JAX package's index traffic) unless a
+    slot needs more; the bytes are counted."""
+    wide = len(slots) and int(np.max(slots)) >= 2**31
+    host = np.ascontiguousarray(slots, np.int64 if wide else np.int32)
+    _uploaded[0] += host.nbytes
+    return torch.from_numpy(host).to(device).to(torch.int64)
+
+
 def _scatter_upload(arr, rows_np: np.ndarray, dst: np.ndarray) -> None:
     """Upload rows and write them at arbitrary slots (index bytes counted)."""
-    idx = torch.from_numpy(np.ascontiguousarray(dst, np.int64)).to(arr.device)
-    _uploaded[0] += rows_np.nbytes + idx.numel() * idx.element_size()
+    idx = _upload_index(dst, arr.device)
+    _uploaded[0] += rows_np.nbytes
     arr.index_copy_(0, idx, torch.from_numpy(np.ascontiguousarray(rows_np)).to(arr.device))
 
 
@@ -617,9 +627,8 @@ def _patch(store, sc: SlotCorpus, gen: int) -> Optional[SlotCorpus]:
             for s0, d0, length in runs:
                 arr.narrow(0, d0, length).copy_(old.narrow(0, s0, length))
         else:
-            src_t = torch.from_numpy(src).to(old.device)
-            dst_t = torch.from_numpy(dst).to(old.device)
-            _uploaded[0] += (src_t.numel() + dst_t.numel()) * 8  # index bytes
+            src_t = _upload_index(src, old.device)
+            dst_t = _upload_index(dst, old.device)
             arr.index_copy_(0, dst_t, old.index_select(0, src_t))
     for (s, _, src, _, novel, _), rows in uploads:
         if src is None:

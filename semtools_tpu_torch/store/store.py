@@ -65,6 +65,7 @@ from semtools_tpu_torch.ops.scan import batched_threshold_scan, topk_scan
 from semtools_tpu_torch.utils.env import env_int as _env_int
 from semtools_tpu_torch.utils.hashing import doc_id
 from semtools_tpu_torch.utils.text import read_file_text
+from semtools_tpu_torch.utils.tracing import stage
 
 CURRENT_EMBEDDING_VERSION = 2
 LINE_EMBEDDING_SIZE = 256
@@ -1206,8 +1207,6 @@ class Store:
         O(chunk + codes) on the host, whatever the corpus size. A device
         error raises (the tmp files are unlinked).
         """
-        from semtools_tpu_torch.utils.tracing import stage
-
         if self._ann_generation_matches():
             loaded = self._ann_load_meta()
             if loaded is not None:
@@ -1753,8 +1752,6 @@ class Store:
         corpus never materializes in RAM. Same semantics as the device
         tiers: top_k nearest per query (stable ties toward the lower
         corpus position), then the strict threshold filter."""
-        from semtools_tpu_torch.utils.tracing import stage
-
         mm = self._mmap("r")
         if mm is None:
             return None
@@ -1970,16 +1967,19 @@ class Store:
             # slots (0x08 rows) score true sim 0 and enter the pool only below
             # the margin; the re-rank drops unowned slots and falls back to the
             # exact path if fewer than `need` real rows remain.
-            if mesh is not None:
-                ids = sharded.sharded_int4_deep_candidates_device(
-                    q_dev, sc.corpus, sc.capacity, mesh, mask=mask, k_cut=max(need, 10))
-            else:
-                ids = int4_deep_candidates(
-                    q_dev, sc.corpus, n_true=sc.capacity, mask=mask, k_cut=max(need, 10),
+            with stage("tier_pool"):
+                if mesh is not None:
+                    ids = sharded.sharded_int4_deep_candidates_device(
+                        q_dev, sc.corpus, sc.capacity, mesh, mask=mask, k_cut=max(need, 10))
+                else:
+                    ids = int4_deep_candidates(
+                        q_dev, sc.corpus, n_true=sc.capacity, mask=mask, k_cut=max(need, 10),
+                    )
+                ids = ids.cpu().numpy()
+            with stage("tier_rerank"):
+                return self._rerank_candidates(
+                    ids, qs, owners, paths, need, top_k, max_distance,
                 )
-            return self._rerank_candidates(
-                ids.cpu().numpy(), qs, owners, paths, need, top_k, max_distance,
-            )
 
         oversample = self._int8_oversample(top_k, reduced_dim is not None, sel_rows)
 
@@ -2114,7 +2114,8 @@ class Store:
         k_sel = min(oversample + patch_cache._SLACK, sc.capacity)
         t_margin = _threshold_margin() if max_distance is not None else None
         while True:
-            i, dq = _candidates(k_sel)
+            with stage("tier_pool"):  # one pass of the pool's growth
+                i, dq = _candidates(k_sel)
             min_valid = min(_unique_valid(i[r]) for r in range(qn))
             # Threshold-mode completion: every row OUTSIDE the pool has
             # quantized distance >= the pool's worst member; once that
@@ -2131,9 +2132,10 @@ class Store:
                     | (worst > float(max_distance) + t_margin)
                 ))
             if (min_valid >= k_target and complete) or k_sel >= sc.capacity:
-                res = self._rerank_candidates(
-                    i, qs, owners, paths, need, top_k, max_distance
-                )
+                with stage("tier_rerank"):
+                    res = self._rerank_candidates(
+                        i, qs, owners, paths, need, top_k, max_distance
+                    )
                 if res is None or k_sel >= sc.capacity:
                     return res
                 if max_distance is not None:

@@ -243,15 +243,17 @@ def test_one_row_edit_ships_one_row(pair, kind, rd):
     _, sc_t, decision = pair.get(kind, rd)
     assert decision == "reuse"
     # the 4095 unchanged rows move on the device as two runs; the edited row
-    # and its int64 slot index cross the bus
+    # and its int32 slot index cross the bus (the JAX package's 260 bytes
+    # at int8 and D 256)
     row_bytes = sc_t.corpus.shape[1] * sc_t.corpus.element_size()
-    assert patch_cache.uploaded_bytes() - before == row_bytes + 8
+    assert patch_cache.uploaded_bytes() - before == row_bytes + 4
 
 
 @pytest.mark.parametrize("kind,rd", KINDS, ids=KIND_IDS)
 def test_shuffled_and_edited_rows_move_by_index(pair, kind, rd):
     """A shuffle leaves no long runs: the moves take index_select/index_copy_
-    (16 index bytes a row) and the edited rows upload."""
+    (8 index bytes a row: int32 source and destination) and the edited rows
+    upload."""
     rng = np.random.default_rng(12)
     rows = _unit(rng, 500)
     other = _unit(rng, 100)
@@ -264,7 +266,7 @@ def test_shuffled_and_edited_rows_move_by_index(pair, kind, rd):
     _, sc_t, decision = pair.get(kind, rd)
     assert decision == "reuse"
     row_bytes = sc_t.corpus.shape[1] * sc_t.corpus.element_size()
-    assert patch_cache.uploaded_bytes() - before == 480 * 16 + 20 * (row_bytes + 8)
+    assert patch_cache.uploaded_bytes() - before == 480 * 8 + 20 * (row_bytes + 4)
 
 
 @pytest.mark.parametrize("kind,rd", [("f32", None), ("int8", None)], ids=["f32", "int8"])

@@ -509,7 +509,10 @@ def test_port_evals_never_import_jax(tmp_path):
 def test_port_probes_never_import_jax(tmp_path):
     """Every module of ``semtools_tpu_torch.probes`` (and ``ops.probes``),
     imported and run on the CPU in a child that sees only the port, loads
-    nothing of jax or of the JAX package."""
+    nothing of jax or of the JAX package. The store-scale drivers run at
+    tiny sizes: the ladder at a 256 KiB budget (60-row docs), the IVF-PQ
+    drivers at 3,000 rows and the patch at 1,004 x 50 and a 3,000-line
+    document."""
     import shutil
 
     root = tmp_path / "port_only"
@@ -517,16 +520,25 @@ def test_port_probes_never_import_jax(tmp_path):
                     ignore=shutil.ignore_patterns("__pycache__", "_build"))
     names = sorted(p.stem for p in (REPO / "semtools_tpu_torch" / "probes").glob("*.py")
                    if p.stem != "__init__")
-    assert {"stream_sweep", "kernel_variants", "int8_phase1", "int4_sweep",
-            "int4_unpack"} <= set(names)
+    out = ["--out", str(tmp_path / "out.json")]
+    runs = {name: [["--rows", "3000"]] for name in names}
+    runs.update(
+        capacity_ladder=[["--budget", "262144", "--queries", "4", "--reps", "1", *out]],
+        ann_scale=[["--rows", "3000", "--clusters", "64", "--queries", "5", *out]],
+        ann_incremental=[["--rows", "3000", "--docs", "20", *out]],
+        patch_scale=[["--docs", "1004", "--lines", "50", *out],
+                     ["--single-file", "--lines", "3000", *out]])
+    assert {"stream_sweep", "kernel_variants", "int8_phase1", "int4_sweep", "int4_unpack",
+            "capacity_ladder", "ann_scale", "ann_incremental", "patch_scale"} <= set(names)
     script = (
         "import contextlib, importlib, io, sys\n"
         "import semtools_tpu_torch.ops.probes\n"
         f"for name in {names!r}:\n"
         "    mod = importlib.import_module('semtools_tpu_torch.probes.' + name)\n"
         "    if hasattr(mod, 'main'):\n"
-        "        with contextlib.redirect_stdout(io.StringIO()):\n"
-        "            assert mod.main(['--device', 'cpu', '--rows', '3000']) == 0, name\n"
+        f"        for args in {runs!r}[name]:\n"
+        "            with contextlib.redirect_stdout(io.StringIO()):\n"
+        "                assert mod.main(['--device', 'cpu', *args]) == 0, (name, args)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'semtools_tpu'))\n"
         "assert not bad, bad\n"
