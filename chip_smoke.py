@@ -175,9 +175,10 @@ exits non-zero without them. Phases:
    lines through ``search.py``'s sharded branch. The counts are reset
    before each run on the mesh and read after: their sums are each
    kernel's ``sharded_launches``.
-12. the soak (``python -m semtools_tpu_torch.soak``) in a child process on
-   the card, its sharded tiers on 4 shards (``SEMTOOLS_TORCH_VIRTUAL_DEVICES=4``),
-   at ``SOAK_ARGS``: the store campaign (random op sequences on its eleven
+12. the soak (``python -m semtools_tpu_torch.soak``) on the card in two
+   child processes at once (``SOAK_GROUPS``: the crash campaign beside the
+   other three), its sharded tiers on 4 shards
+   (``SEMTOOLS_TORCH_VIRTUAL_DEVICES=4``), at ``SOAK_ARGS``: the store campaign (random op sequences on its eleven
    tiers at dims 13 and 16, corpora of 1-300 rows, k in {1, 3, 70, n+5}, Q
    in {1, 2, 40}, thresholds, subsets, zero and duplicate rows, compaction
    mid-churn), the workspace and daemon campaigns and the SIGKILL crash
@@ -241,6 +242,26 @@ exits non-zero without them. Phases:
    planted row found; ``ann_incremental`` at 1M rows: the edited row first,
    the tier ``ivf-pq``, nothing rebuilt. Each step's launches are counted
    from zero; their sums are each kernel's ``ladder_launches``.
+16. the behavioural suites' kernel-sensitive cases
+   (``semtools_tpu_torch.soak.behaviour``) over a store of 600,000
+   background rows at d = 256 (``BEHAVIOUR_ROWS``: the int8 scan's sub-tile
+   selection spans two chunks of 4,096 sub-tile maxima), built twice, with
+   and without 4,096 freed slots ahead of its rows: threshold shells at
+   0.3 +- 2e-2, 1e-2, 1e-3, 1e-4 (12 rows each) served at top k 5 and 40 by
+   the int8, int4 and reduced-64d tiers, and a dense cluster's top 10, each
+   equal to the f32-exact order on the card (TF32 off; rows of one shell
+   may swap, as their distances are equal up to f32 rounding); a subset of
+   half the files (int8 masked, int4 masked) and a 3-row subset at top k 20
+   equal to the compact path and the exact order; ``device_cache.stats()``
+   after a warm search equal to the slot corpus tensor's bytes; on 4 shards
+   of the card ``sharded_topk_fn`` with the fused kernels equal to it
+   without them, to the single-device scan and to the exact order (a best
+   row in the ragged tail, an anti-aligned corpus whose pad rows would win
+   if read), the sharded int8 scan bit-equal to the single-device one, the
+   sharded threshold scan equal to the single-device one; the native grep
+   and tokenizer equal to their Python fallbacks. Each check fails when a
+   kernel it routes to did not launch in it; the sums are each kernel's
+   ``behaviour_launches``, and ``BEHAVIOUR_PATH`` must all launch.
 
 Phases 6-10 check their hits against a plain exact scan of the same
 embeddings on the card (tolerance as in phase 2), and every kernel of each
@@ -250,8 +271,9 @@ timed after the build. The last line of stdout is ``{"ok": true,
 "device": {...}}``; the lines before it are the card's name and power limit,
 the ``stream_roof_gbps`` line, and the per-kernel JSON summary (with
 ``device_ms``, ``floor_ms``, ``ask_launches``, ``sharded_launches``,
-``soak_launches``, ``eval_launches``, ``tier_launches`` and
-``ladder_launches`` beside the contract's keys; a probe's entry is the call named in PROBES).
+``soak_launches``, ``eval_launches``, ``tier_launches``, ``ladder_launches``
+and ``behaviour_launches`` beside the contract's keys; a probe's entry is the
+call named in PROBES).
 """
 
 from __future__ import annotations
@@ -3033,6 +3055,8 @@ def sharded_phase(files, qfile, subset, thr):
 # twins by the store campaign's tier, and the kernels it is not expected to
 # reach with the routing that keeps them out.
 SOAK_ARGS = ("--steps", "40", "--seeds", "2", "--crash-rounds", "16")
+# the soak's campaigns in two children at once: the crash campaign beside the rest
+SOAK_GROUPS = ("store,workspace,daemon", "crash")
 SOAK_KERNELS = ("select_subtiles", "int8_tilemax", "int8_rescan_topk", "int8_tilemax_masked",
                 "int8_rescan_topk_masked", "int4_sims_max", "int4_sims_max_masked",
                 "int4_cutoff_counts", "int4_extract_above", "fused_tilemax",
@@ -3056,22 +3080,33 @@ SOAK_LAUNCHES = {}  # kernel -> launches summed over phase 12's campaigns
 
 
 def soak_phase() -> None:
-    """Phase 12: the soak in a child process on the card; the launches of
-    its campaigns go to SOAK_LAUNCHES."""
+    """Phase 12: the soak on the card in two child processes at once, the
+    crash campaign beside the other three (both spend their time starting
+    processes, not on the card); the launches of the campaigns go to
+    SOAK_LAUNCHES."""
     t0 = time.perf_counter()
     env = {k: v for k, v in os.environ.items() if not k.startswith("SEMTOOLS_")}
     env.update(SEMTOOLS_TORCH_VIRTUAL_DEVICES=str(SHARDS), SEMTOOLS_TPU_NO_FETCH="1",
                SEMTOOLS_TPU_ALLOW_FALLBACK="1", PYTHONPATH=str(REPO))
-    proc = subprocess.run([sys.executable, "-m", "semtools_tpu_torch.soak", *SOAK_ARGS],
-                          env=env, cwd=str(REPO), stdin=subprocess.DEVNULL,
-                          capture_output=True, text=True, timeout=480)
-    reports = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith('{"campaign"')]
-    for ln in proc.stdout.splitlines():
-        if "MISMATCH" in ln or "FAILURE" in ln:
-            log(f"soak: {ln}")
-    if proc.returncode != 0:
-        raise AssertionError(f"phase 12 (soak) exited {proc.returncode}: "
-                             f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    procs = [subprocess.Popen([sys.executable, "-m", "semtools_tpu_torch.soak", *SOAK_ARGS,
+                               "--campaigns", campaigns],
+                              env=env, cwd=str(REPO), stdin=subprocess.DEVNULL,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for campaigns in SOAK_GROUPS]
+    try:
+        outs = [p.communicate(timeout=480) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    reports = []
+    for p, (out, err) in zip(procs, outs):
+        reports += [json.loads(ln) for ln in out.splitlines() if ln.startswith('{"campaign"')]
+        for ln in out.splitlines():
+            if "MISMATCH" in ln or "FAILURE" in ln:
+                log(f"soak: {ln}")
+        if p.returncode != 0:
+            raise AssertionError(f"phase 12 (soak {' '.join(p.args[3:])}) exited "
+                                 f"{p.returncode}: {out[-2000:]}{err[-3000:]}")
     names = [r["campaign"] for r in reports]
     if names != ["store", "workspace", "daemon", "crash"]:
         raise AssertionError(f"phase 12 reported campaigns {names}")
@@ -3611,6 +3646,41 @@ def scale_phase() -> None:
     log(f"scale: phase 15 done in {time.perf_counter() - t0:.1f} s ({CARD})")
 
 
+# -- phase 16: the behavioural suites' kernel-sensitive cases -----------------------
+
+# Background rows of the behaviour store: more than SELECT_CHUNK (4,096) x 128
+# rows, so the int8 scan's selection of sub-tile maxima spans chunks.
+BEHAVIOUR_ROWS = 600_000
+BEHAVIOUR_PATH = ("fused_tilemax", "fused_rescan_topk", "select_subtiles", "int8_tilemax",
+                  "int8_rescan_topk", "int8_tilemax_masked", "int8_rescan_topk_masked",
+                  "int4_sims_max", "int4_sims_max_masked", "int4_cutoff_counts",
+                  "int4_extract_above")
+BEHAVIOUR_LAUNCHES = {}  # kernel -> launches summed over phase 16's checks
+
+
+def behaviour_phase() -> None:
+    """Phase 16: ``soak.behaviour.run_all`` on the card; each check fails by
+    itself when a kernel it routes to did not launch or an answer differs
+    from the exact one; the launches summed into BEHAVIOUR_LAUNCHES."""
+    import torch
+
+    from semtools_tpu_torch.soak import behaviour
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="semtools_smoke_behaviour_") as tmp:
+        records = behaviour.run_all(BEHAVIOUR_ROWS, D, torch.device("cuda"), Path(tmp))
+    for r in records:
+        for k, v in r["launches"].items():
+            BEHAVIOUR_LAUNCHES[k] = BEHAVIOUR_LAUNCHES.get(k, 0) + v
+        log(f"behaviour: {json.dumps(r)} ({CARD})")
+    missing = [k for k in BEHAVIOUR_PATH if not BEHAVIOUR_LAUNCHES.get(k)]
+    if missing:
+        raise AssertionError(f"phase 16: never launched {missing}")
+    log(f"behaviour: {len(records)} checks, every answer exact; launches "
+        f"{dict(sorted(BEHAVIOUR_LAUNCHES.items()))}")
+    log(f"behaviour: phase 16 done in {time.perf_counter() - t0:.1f} s ({CARD})")
+
+
 def main() -> int:
     if not (REPO / "semtools_tpu_torch").is_dir() or not (REPO / "cpp").is_dir():
         print("error: run chip_smoke.py from a checkout of the repository", file=sys.stderr)
@@ -3691,6 +3761,7 @@ def main() -> int:
     eval_phase()
     tier_phase()
     scale_phase()
+    behaviour_phase()
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "semtools_tpu"))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
@@ -3725,6 +3796,7 @@ def main() -> int:
             "eval_launches": EVAL_LAUNCHES.get(name, 0),
             "tier_launches": TIER_LAUNCHES.get(name, 0),
             "ladder_launches": LADDER_LAUNCHES.get(name, 0),
+            "behaviour_launches": BEHAVIOUR_LAUNCHES.get(name, 0),
         })
     for name, r in probes.items():  # launches on each probe module's own run
         summary["kernels"].append({
@@ -3740,6 +3812,7 @@ def main() -> int:
             "eval_launches": EVAL_LAUNCHES.get(name, 0),
             "tier_launches": TIER_LAUNCHES.get(name, 0),
             "ladder_launches": LADDER_LAUNCHES.get(name, 0),
+            "behaviour_launches": BEHAVIOUR_LAUNCHES.get(name, 0),
         })
     log(f"stream_roof_gbps: {roof:.1f} ({card or 'card name and power limit unavailable'})")
     log(card or "nvidia-smi: name and power limit unavailable")

@@ -10,7 +10,7 @@ not needed.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +40,27 @@ def _embed_chunk(table, token_lists, max_length: int, normalize: bool):
     return mean
 
 
+def chunk_spans(
+    token_lists: Sequence[Sequence[int]], max_length: int = 2048
+) -> List[Tuple[int, int]]:
+    """``[(start, end)]`` of the calls :func:`embed_token_lists` makes: a
+    call ends before the text that would take it past MAX_TOKENS_PER_CALL
+    tokens (each text clipped to ``max_length``) or MAX_TEXTS_PER_CALL
+    texts. The one source of the chunk policy."""
+    spans: List[Tuple[int, int]] = []
+    start = 0
+    tokens = 0
+    for i, ids in enumerate(token_lists):
+        n = min(len(ids), max_length)
+        if i > start and (tokens + n > MAX_TOKENS_PER_CALL or i - start >= MAX_TEXTS_PER_CALL):
+            spans.append((start, i))
+            start, tokens = i, 0
+        tokens += n
+    if start < len(token_lists):
+        spans.append((start, len(token_lists)))
+    return spans
+
+
 def embed_token_lists(
     table: torch.Tensor,
     token_lists: Sequence[Sequence[int]],
@@ -48,19 +69,33 @@ def embed_token_lists(
     normalize: bool = True,
 ) -> torch.Tensor:
     """Embed ragged token-id lists -> ``[len(token_lists), D]`` float32 on
-    the table's device, in calls bounded by MAX_TOKENS_PER_CALL /
-    MAX_TEXTS_PER_CALL."""
-    out = []
-    start = 0
-    tokens = 0
-    for i, ids in enumerate(token_lists):
-        n = min(len(ids), max_length)
-        if i > start and (tokens + n > MAX_TOKENS_PER_CALL or i - start >= MAX_TEXTS_PER_CALL):
-            out.append(_embed_chunk(table, token_lists[start:i], max_length, normalize))
-            start, tokens = i, 0
-        tokens += n
-    if start < len(token_lists):
-        out.append(_embed_chunk(table, token_lists[start:], max_length, normalize))
+    the table's device, one call per span of :func:`chunk_spans`."""
+    out = [_embed_chunk(table, token_lists[a:b], max_length, normalize)
+           for a, b in chunk_spans(token_lists, max_length)]
     if not out:
         return torch.zeros((0, table.shape[1]), dtype=torch.float32, device=table.device)
     return out[0] if len(out) == 1 else torch.cat(out, dim=0)
+
+
+def embed_token_lists_reference(
+    table: np.ndarray,
+    token_lists: Sequence[Sequence[int]],
+    *,
+    max_length: int = 2048,
+    normalize: bool = True,
+) -> np.ndarray:
+    """Plain numpy embedding, text by text: the mean of the clipped ids'
+    rows, L2-normalized when its norm is positive; zeros for no ids."""
+    table = np.asarray(table)
+    out = np.zeros((len(token_lists), table.shape[1]), dtype=np.float32)
+    for i, ids in enumerate(token_lists):
+        ids = list(ids)[:max_length]
+        if not ids:
+            continue
+        vec = table[np.asarray(ids, dtype=np.int64)].astype(np.float32).mean(axis=0)
+        if normalize:
+            norm = np.linalg.norm(vec)
+            if norm > 0:
+                vec = vec / norm
+        out[i] = vec
+    return out

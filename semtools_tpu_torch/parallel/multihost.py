@@ -37,6 +37,12 @@ def _env_int(*names) -> Optional[int]:
     return None
 
 
+def is_multihost_env() -> bool:
+    """True when the environment names a coordinator for :func:`initialize`."""
+    return bool(os.environ.get("JAX_COORDINATOR_ADDRESS")
+                or os.environ.get("COORDINATOR_ADDRESS"))
+
+
 def initialize(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,

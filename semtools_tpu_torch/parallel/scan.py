@@ -97,16 +97,37 @@ def sharded_topk_scan(q, corpus, k: int, mesh: Optional[Mesh] = None):
     return sharded_topk_scan_device(q, e, n, k, mesh)
 
 
+def sharded_topk_fn(mesh: Mesh, k: int, n_local: int, fused: Optional[bool] = None):
+    """The sharded top-k scan for one mesh, k and shard size, called as
+    ``fn(q, e_sharded, n_true, mask=None)`` over rows sharded ``n_local`` a
+    shard (the JAX package's factory; there is nothing to compile, so nothing
+    is cached). ``fused`` forces the fused kernels on each shard (True) or
+    the plain per-shard scan (False); None decides by :func:`_use_fused_local`
+    at each call. A mask always takes the plain scan. On CPU tensors the
+    kernels' wrappers run their plain versions."""
+
+    def fn(q, e_sharded: ShardedRows, n_true: int, mask: Optional[ShardedRows] = None):
+        if e_sharded.n_local != n_local:
+            raise ValueError(f"built for {n_local} rows a shard, given {e_sharded.n_local}")
+        return _sharded_topk(q, e_sharded, n_true, k, mesh, mask, fused)
+
+    return fn
+
+
 def sharded_topk_scan_device(q, e: ShardedRows, n_true: int, k: int,
                              mesh: Optional[Mesh] = None, mask: Optional[ShardedRows] = None,
                              fused: Optional[bool] = None):
     """Like :func:`sharded_topk_scan` over rows already sharded; rows at
     global index >= ``n_true`` are padding and never read. ``mask`` (sharded
     like ``e``, uint8 or bool) keeps the rows where it is nonzero: masked
-    rows never surface (path-subset serving). ``fused`` overrides
-    :func:`_use_fused_local` (unmasked only; on CPU tensors the kernels'
-    wrappers run their plain versions)."""
+    rows never surface (path-subset serving). ``fused`` as in
+    :func:`sharded_topk_fn`, which this calls."""
     mesh = mesh or e.mesh
+    return sharded_topk_fn(mesh, k, e.n_local, fused)(q, e, n_true, mask=mask)
+
+
+def _sharded_topk(q, e: ShardedRows, n_true: int, k: int, mesh: Mesh,
+                  mask: Optional[ShardedRows], fused: Optional[bool]):
     dev = mesh.first
     q = torch.as_tensor(q, dtype=torch.float32)
     qn = q.shape[0]
@@ -349,5 +370,18 @@ def sharded_threshold_scan(q, corpus, max_distance: float, mesh: Optional[Mesh] 
     sharded corpus: (distances [M], int64 rows [M]), ascending."""
     if q.shape[0] != 1:
         raise ValueError("sharded_threshold_scan expects a single query row")
-    return sharded_batched_threshold_scan(q, corpus, max_distance, mesh)[0]
+    if mesh is None:
+        mesh = corpus_mesh(device=corpus.device if torch.is_tensor(corpus) else None)
+    if not torch.is_tensor(corpus):
+        corpus = np.asarray(corpus, np.float32)
+    e, n = shard_corpus(corpus, mesh)
+    return sharded_threshold_scan_device(q, e, n, max_distance, mesh)
 
+
+def sharded_threshold_scan_device(q, e_sharded: ShardedRows, n_true: int, max_distance: float,
+                                  mesh: Optional[Mesh] = None):
+    """Threshold mode for one query row over rows already sharded: a batch of
+    one through :func:`sharded_batched_threshold_scan_device`."""
+    if q.shape[0] != 1:
+        raise ValueError("sharded_threshold_scan expects a single query row")
+    return sharded_batched_threshold_scan_device(q, e_sharded, n_true, max_distance, mesh)[0]

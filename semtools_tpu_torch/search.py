@@ -60,6 +60,14 @@ class SearchResult:
     distance: float
 
 
+def create_document_from_content(
+    filename: str, content: str, model: StaticModel, ignore_case: bool
+) -> Optional[Document]:
+    """Split content into lines and embed each; None for empty content."""
+    docs = create_documents_from_contents([(filename, content)], model, ignore_case)
+    return docs[0] if docs else None
+
+
 def create_documents_from_contents(
     items: Sequence[Tuple[str, str]], model: StaticModel, ignore_case: bool
 ) -> List[Document]:

@@ -107,3 +107,9 @@ def invalidate() -> None:
     with _lock:
         _entries.clear()
         _total_bytes = 0
+
+
+def stats() -> Tuple[int, int]:
+    """(entries, bytes) held now; the bytes as :func:`_nbytes` charged them."""
+    with _lock:
+        return len(_entries), _total_bytes

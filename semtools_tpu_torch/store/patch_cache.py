@@ -663,11 +663,13 @@ def _key(store, kind: str, device: torch.device, reduced_dim: Optional[int],
             mesh.size if mesh is not None else 0)
 
 
-def is_warm(store, kind: str, device: torch.device, reduced_dim: Optional[int] = None,
-            mesh: Optional[Mesh] = None) -> bool:
-    """True when a corpus of this kind for ``store`` (sharded over ``mesh``
-    when given) is resident (any generation: a stale one is one patch
-    away). Never builds."""
+def is_warm(store, kind: str, *, device: Optional[torch.device] = None,
+            reduced_dim: Optional[int] = None, mesh: Optional[Mesh] = None) -> bool:
+    """True when a corpus of this kind for ``store`` (on ``device``, default
+    the store's; sharded over ``mesh`` when given) is resident (any
+    generation: a stale one is one patch away). Never builds. Every argument
+    after ``kind`` is keyword-only, as in :func:`get`."""
+    device = store.device if device is None else device
     return isinstance(device_cache.peek(_key(store, kind, device, reduced_dim, mesh)),
                       SlotCorpus)
 
@@ -687,12 +689,16 @@ def _key_lock(key: tuple) -> threading.Lock:
         return lk
 
 
-def get(store, kind: str, device: torch.device, reduced_dim: Optional[int] = None,
-        mesh: Optional[Mesh] = None) -> Optional[SlotCorpus]:
-    """The slot corpus of ``store`` at its current generation (row-sharded
-    over ``mesh`` when given): a cache hit, else the cached entry patched
-    (the ``slot_corpus_patch`` stage), else a full build
-    (``slot_corpus_build``)."""
+def get(store, kind: str, *, device: Optional[torch.device] = None,
+        reduced_dim: Optional[int] = None, mesh: Optional[Mesh] = None) -> Optional[SlotCorpus]:
+    """The slot corpus of ``store`` at its current generation on ``device``
+    (default the store's; row-sharded over ``mesh`` when given): a cache
+    hit, else the cached entry patched (the ``slot_corpus_patch`` stage),
+    else a full build (``slot_corpus_build``). Every argument after
+    ``kind`` is keyword-only: the JAX package's third parameter is
+    ``reduced_dim``, so a positional one is refused, never read as a
+    device."""
+    device = store.device if device is None else device
     key = _key(store, kind, device, reduced_dim, mesh)
     with _key_lock(key):
         gen = store.generation()

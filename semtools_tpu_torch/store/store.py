@@ -1825,7 +1825,7 @@ class Store:
             return None
         mesh = self._serving_mesh(total_rows)
         kind, rd = self._device_kind(total_rows)
-        if mode not in ("1", "on") and not patch_cache.is_warm(self, kind, self.device, rd, mesh):
+        if mode not in ("1", "on") and not patch_cache.is_warm(self, kind, reduced_dim=rd, mesh=mesh):
             subset_rows = sum(n for _, _, n in subset_ranges)
             build_bytes = self._slot_rows(total_rows) * self._tier_bytes_per_row(kind, rd)
             if subset_rows * 4 * self.dim < build_bytes:
@@ -1901,7 +1901,7 @@ class Store:
         from semtools_tpu_torch.store import patch_cache
 
         kind, reduced_dim = self._device_kind(n_rows)
-        sc = patch_cache.get(self, kind, self.device, reduced_dim, mesh)
+        sc = patch_cache.get(self, kind, reduced_dim=reduced_dim, mesh=mesh)
         if sc is None:
             return None
         qs = np.asarray(query_vecs, np.float32)
@@ -2212,6 +2212,22 @@ class Store:
                 for o in order
             ])
         return out
+
+    def load_subset_matrix(
+        self, subset_paths: Sequence[str]
+    ) -> Tuple[np.ndarray, List[str], np.ndarray]:
+        """(rows [M, D] f32, each row's path, each row's line number) of the
+        subset's documents, from the vector file (the JAX package's name,
+        for tests and benchmarks that need the raw matrix)."""
+        ranges = self._subset_slots(subset_paths)
+        mm = self._mmap("r")
+        if not ranges or mm is None:
+            return np.zeros((0, self.dim), np.float32), [], np.zeros(0, np.int64)
+        slots = np.concatenate([np.arange(s, s + n, dtype=np.int64) for _, s, n in ranges])
+        corpus = np.asarray(mm[slots])
+        paths = [path for path, _, n in ranges for _ in range(n)]
+        lines = np.concatenate([np.arange(n, dtype=np.int64) for _, _, n in ranges])
+        return corpus, paths, lines
 
     # -- deletes -----------------------------------------------------------
 

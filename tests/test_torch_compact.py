@@ -266,11 +266,11 @@ def test_warm_corpus_follows_compaction_by_moves(both, kind):
         s.delete_documents(["/d01.txt"])  # a hole near the front: most docs move
     del docs["/d01.txt"]
     cpu = torch.device("cpu")
-    old = patch_cache.get(t, kind, cpu)
+    old = patch_cache.get(t, kind, device=cpu)
     jax_patch_cache.get(j, kind, None)
     assert t.compact()["slots_reclaimed"] == j.compact()["slots_reclaimed"] == 100
     before = patch_cache.uploaded_bytes()
-    sc_t = patch_cache.get(t, kind, cpu)
+    sc_t = patch_cache.get(t, kind, device=cpu)
     sc_j = jax_patch_cache.get(j, kind, None)
     assert patch_cache.uploaded_bytes() == before  # moves only
     assert sc_t is not old and sc_t.patched_rows == sc_j.patched_rows

@@ -421,7 +421,7 @@ def test_warm_builds_the_active_workspace_corpus(env, capsys, monkeypatch):
     device_cache.invalidate()
     daemon._warm()
     with Store(Workspace.open("ws").config.root_dir, device="cpu") as store:
-        assert patch_cache.is_warm(store, "int8", store.device)
+        assert patch_cache.is_warm(store, "int8")
 
 
 # -- coalescing (store/coalesce.py) ------------------------------------------------------

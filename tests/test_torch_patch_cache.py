@@ -92,7 +92,7 @@ class Pair:
         the decision is 'build' or 'reuse' (a hit or a patch) and must agree."""
         before = dict(self.builds)
         sc_j = jax_patch_cache.get(self.j, kind, rd)
-        sc_t = patch_cache.get(self.t, kind, CPU, rd)
+        sc_t = patch_cache.get(self.t, kind, device=CPU, reduced_dim=rd)
         built = {s: self.builds[s] > before[s] for s in self.builds}
         assert built["jax"] == built["torch"], built
         assert_same(sc_j, sc_t)
@@ -401,7 +401,7 @@ def test_reader_snapshot_survives_a_concurrent_patch(tmp_path):
     rng = np.random.default_rng(4)
     for i in range(20):
         s.upsert_document_lines(f"/d{i}.txt", _unit(rng, 50))
-    held = patch_cache.get(s, "int8", CPU)
+    held = patch_cache.get(s, "int8", device=CPU)
     bytes_before = held.corpus.clone()
     layout_before, starts_before = dict(held.layout), held.starts.copy()
     out = {}
@@ -411,7 +411,7 @@ def test_reader_snapshot_survives_a_concurrent_patch(tmp_path):
         try:
             w.upsert_document_lines("/d3.txt", _unit(np.random.default_rng(5), 70))
             w.delete_documents(["/d5.txt"])
-            out["fresh"] = patch_cache.get(w, "int8", CPU)
+            out["fresh"] = patch_cache.get(w, "int8", device=CPU)
         finally:
             w.close()
 
@@ -446,7 +446,7 @@ def test_concurrent_gets_build_once(tmp_path, monkeypatch):
     def one(i):
         st = Store(str(tmp_path / "ws"), dim=32, device="cpu")
         try:
-            got[i] = patch_cache.get(st, "int8", CPU)
+            got[i] = patch_cache.get(st, "int8", device=CPU)
         finally:
             st.close()
 

@@ -151,7 +151,7 @@ def test_rungs_serve_the_jax_hits(make, monkeypatch, rung, per_row, env):
     _check(j, t, docs, everything, qs, 1000, max_distance=thr)
     monkeypatch.setenv("SEMTOOLS_TPU_SUBSET_DEVICE", "1")  # the keep mask
     _check(j, t, docs, ["/a.txt", "/c.txt"], qs, 10)
-    sc = patch_cache.get(t, "int8", torch.device("cpu"), int(rung[7:-1]))
+    sc = patch_cache.get(t, "int8", device=torch.device("cpu"), reduced_dim=int(rung[7:-1]))
     assert sc.corpus.shape == (600, int(rung[7:-1]) + 1)
 
 
@@ -226,7 +226,7 @@ def test_residual_column_bounds_and_overflow_rebuild(make, monkeypatch):
     monkeypatch.setenv("SEMTOOLS_TPU_REDUCED_DIM", "8")
     _budget(monkeypatch, t, n, 12)
     _check(j, t, docs, ["/a.txt"], rows[:2], 3)
-    sc = patch_cache.get(t, "int8", torch.device("cpu"), 8)
+    sc = patch_cache.get(t, "int8", device=torch.device("cpu"), reduced_dim=8)
     proj = rows @ sc.rotation
     r = np.sqrt(np.maximum(np.einsum("ij,ij->i", rows, rows)
                            - np.einsum("ij,ij->i", proj, proj), 0.0))
@@ -240,7 +240,7 @@ def test_residual_column_bounds_and_overflow_rebuild(make, monkeypatch):
         s.upsert_document_lines("/b.txt", ortho)
     docs["/b.txt"] = ortho
     _check(j, t, docs, ["/a.txt", "/b.txt"], ortho[7:8], 5)
-    refit = patch_cache.get(t, "int8", torch.device("cpu"), 8)
+    refit = patch_cache.get(t, "int8", device=torch.device("cpu"), reduced_dim=8)
     assert refit.patched_rows == 0 and refit.resid_scale > sc.resid_scale
 
 

@@ -358,6 +358,8 @@ def test_port_search_never_imports_jax(env, tmp_path):
         "assert daemon.stop()\n"
         "th.join(timeout=30)\n"
         "assert not th.is_alive()\n"
+        "from semtools_tpu_torch.models import HFTokenizer, HashTokenizer, StaticModel, load_model\n"
+        "from semtools_tpu_torch.ops import cosine_distances, embed_token_lists, topk_scan\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'semtools_tpu', 'httpx'))\n"
         "assert not bad, bad\n"
@@ -388,6 +390,37 @@ def test_port_search_never_imports_jax(env, tmp_path):
         assert f"\n{answer}\n" in out
     assert servers["parse"].app.upload_attempts == 2
     assert all(not srv.app.script for k, srv in servers.items() if k != "parse")
+
+
+def test_reexports_are_lazy():
+    """``semtools_tpu_torch.models`` and ``.ops`` re-export the JAX
+    package's names (its ``__all__``) lazily: importing either package, or
+    ``ops.kernels`` beside them, loads no torch, numpy or jax; the first
+    use of a name imports its module."""
+    import semtools_tpu.models as jax_models
+    import semtools_tpu.ops as jax_ops
+    import semtools_tpu_torch.models as port_models
+    import semtools_tpu_torch.ops as port_ops
+
+    assert port_models.__all__ == jax_models.__all__
+    assert port_ops.__all__ == jax_ops.__all__
+    script = (
+        "import sys\n"
+        "import semtools_tpu_torch.ops.kernels, semtools_tpu_torch.models, semtools_tpu_torch.ops\n"
+        "heavy = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'numpy', 'jax', 'semtools_tpu'))\n"
+        "assert not heavy, heavy\n"
+        "from semtools_tpu_torch.models import *\n"
+        "from semtools_tpu_torch.ops import *\n"
+        "from semtools_tpu_torch.models.static_model import StaticModel as S\n"
+        "from semtools_tpu_torch.ops.scan import topk_scan as t\n"
+        "assert StaticModel is S and topk_scan is t\n"
+        "print('LAZY_OK')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(REPO),
+                          env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True,
+                          text=True, stdin=subprocess.DEVNULL, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "LAZY_OK", proc.stderr
 
 
 def test_port_soak_never_imports_jax(tmp_path):

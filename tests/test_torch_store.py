@@ -157,7 +157,7 @@ def test_search_matches_jax(stores, monkeypatch, tier, subset, subset_device, to
     # numpy re-rank; the compact gather is an f32 scan
     exact = tier != "f32" and (subset == "all" or subset_device == "1")
     _assert_same(want, got, exact)
-    assert patch_cache.is_warm(t, tier, t.device) == (subset == "all" or subset_device == "1")
+    assert patch_cache.is_warm(t, tier) == (subset == "all" or subset_device == "1")
     if subset == "all" and max_distance is None:
         assert [rows[0].distance for rows in got][0] == pytest.approx(0.0, abs=1e-6)
 

@@ -143,7 +143,7 @@ def test_slot_corpus_layout_is_padded(tmp_path, clean_env, kind, dim, build):
     rng = np.random.default_rng(5)
     s = Store(str(tmp_path / "ws"), dim=dim, device="cpu")
     docs = _fill(s, rng, dim)
-    sc = patch_cache.get(s, kind, torch.device("cpu"))
+    sc = patch_cache.get(s, kind, device=torch.device("cpu"))
     cap = s._capacity()
     mm = np.zeros((cap, dim), np.float32)
     for p, st, n in s._valid_ranges():
@@ -170,7 +170,7 @@ def test_slot_corpus_layout_is_padded(tmp_path, clean_env, kind, dim, build):
     rows = _unit(rng, 7, dim)
     s.upsert_document_lines(PATHS[0], rows)
     docs[PATHS[0]] = rows
-    sc2 = patch_cache.get(s, kind, torch.device("cpu"))
+    sc2 = patch_cache.get(s, kind, device=torch.device("cpu"))
     assert sc2 is not sc and sc2.corpus.shape[1] == width
     assert (sc2.corpus.numpy()[:, want.shape[1]:] == pad).all()
     _check(s, docs, sorted(docs), qs, 4)

@@ -90,8 +90,12 @@ def patch_runs(tmp_path_factory):
     home.mkdir()
     env = _env(home, SEMTOOLS_TPU_INT8_MIN_ROWS="1000")
     procs = [
+        # the JAX side's scan route pinned to the device: its "auto" probes
+        # the link's speed, and a loaded host can send the cold store to the
+        # host scan, which uploads nothing (the port's route is the device)
         _spawn([sys.executable, "-c", _JAX_PATCH],
-               dict(env, SEMTOOLS_TPU_PLATFORM="cpu", JAX_PLATFORMS="cpu")),
+               dict(env, SEMTOOLS_TPU_PLATFORM="cpu", JAX_PLATFORMS="cpu",
+                    SEMTOOLS_TPU_SCAN="device")),
         _port("patch_scale", "--docs", str(PATCH_DOCS), "--lines", str(PATCH_LINES), env=env,
               out=root / "many.json"),
         _port("patch_scale", "--single-file", "--lines", str(SINGLE_LINES), env=env,

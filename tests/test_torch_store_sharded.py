@@ -124,7 +124,7 @@ def test_sharded_tiers_match_jax(stores, monkeypatch, tier, env, subset, top_k, 
     if top_k == 500 and subset == "all":
         assert len(got) == 123  # clamped to the store, no padding row served
     assert patch_cache.is_warm(t, "f32" if not env else ("int8" if "INT8" in str(env) else "int4"),
-                               t.device, None, torch_mesh.corpus_mesh(device="cpu"))
+                               mesh=torch_mesh.corpus_mesh(device="cpu"))
 
 
 def test_sharded_cache_invalidated_on_mutation(stores):
