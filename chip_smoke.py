@@ -262,6 +262,27 @@ exits non-zero without them. Phases:
    and tokenizer equal to their Python fallbacks. Each check fails when a
    kernel it routes to did not launch in it; the sums are each kernel's
    ``behaviour_launches``, and ``BEHAVIOUR_PATH`` must all launch.
+17. the repo's end-to-end measurement drivers (``semtools_tpu_torch.probes``,
+   counterparts of ``benchmarks/quantitative/``'s), run on a thread beside
+   phase 12 (both wait on child processes; its walls are taken beside the
+   soak), one child process on the card a driver (``probes/drivers.py``
+   ``RUNS``, in turn), at the JAX drivers' own sizes: ``run_bench`` (BASELINE's matrix: search over 100 files x 200
+   lines, 1,000 queries against 99,840 rows top-k and threshold, the
+   workspace cold and warm, a batch of 32 against its loop, a one-line edit
+   of a 50,000-line file with and without line reuse, IVF-PQ at 200,000
+   rows, the tiers' recall at 200,000 rows, a 500,000-row store's path
+   subset), its ``sharded_scan`` at 2^18 rows on 4 shards of the card
+   (``SEMTOOLS_TORCH_VIRTUAL_DEVICES=4``), ``tier_recall`` at 1,000,000 rows
+   (the free host memory and disk logged first), ``workspace_e2e`` at 8,000
+   papers (~500k lines, the ``potion_mini`` artifacts), ``daemon_parallel``
+   at 2,000 papers and 8 clients, and both embed drivers (2^19 tokens over
+   2^15 lines). It fails on a driver's failed assert or missing record, on
+   recall@10 under 0.99 for ``int8-full`` or ``reduced-int8-64d`` at either
+   size, and when a kernel a config routes to (``drivers.routes``) did not
+   launch in it; it logs every record, the IVF-PQ rows, the line-reuse
+   speedup, ``subset_vs_full``, ``parallel_over_batched`` and the share of
+   ``search_e2e`` and of the cold build that each stage takes. The sums of
+   the drivers' launches are each kernel's ``drivers_launches``.
 
 Phases 6-10 check their hits against a plain exact scan of the same
 embeddings on the card (tolerance as in phase 2), and every kernel of each
@@ -271,13 +292,14 @@ timed after the build. The last line of stdout is ``{"ok": true,
 "device": {...}}``; the lines before it are the card's name and power limit,
 the ``stream_roof_gbps`` line, and the per-kernel JSON summary (with
 ``device_ms``, ``floor_ms``, ``ask_launches``, ``sharded_launches``,
-``soak_launches``, ``eval_launches``, ``tier_launches``, ``ladder_launches``
-and ``behaviour_launches`` beside the contract's keys; a probe's entry is the
-call named in PROBES).
+``soak_launches``, ``eval_launches``, ``tier_launches``, ``ladder_launches``,
+``behaviour_launches`` and ``drivers_launches`` beside the contract's keys; a
+probe's entry is the call named in PROBES).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -3681,6 +3703,62 @@ def behaviour_phase() -> None:
     log(f"behaviour: phase 16 done in {time.perf_counter() - t0:.1f} s ({CARD})")
 
 
+# -- phase 17: the repo's end-to-end measurement drivers ----------------------------
+
+DRIVERS_LAUNCHES = {}  # kernel -> launches summed over phase 17's drivers
+
+
+def stage_shares(stages: dict, wall: float) -> str:
+    """Each stage's share of ``wall``, largest first (stages may nest)."""
+    return ", ".join(f"{k} {100 * v / wall:.1f}%"
+                     for k, v in sorted(stages.items(), key=lambda kv: -kv[1]))
+
+
+def drivers_phase() -> None:
+    """Phase 17: ``probes.drivers.run_all`` on the card; its gates fail the
+    phase; the records and their derived numbers logged, the launches summed
+    into DRIVERS_LAUNCHES."""
+    from semtools_tpu_torch.probes import drivers
+
+    t0 = time.perf_counter()
+    res = drivers.run_all(REPO / "chiprun_out" / "drivers", log=log)
+    DRIVERS_LAUNCHES.update(res["launches"])
+    recs = res["records"]
+    for tag, rows in recs.items():
+        for r in rows:
+            log(f"drivers: {tag}: {json.dumps({k: v for k, v in r.items() if k != 'card'})} "
+                f"({CARD})")
+    bench = {(r["config"], r["tier"] if r["config"] == "tier_recall" else None): r
+             for r in recs["run_bench"]}
+    for r in [bench[("ivfpq_recall", None)]] + [
+            r for tag in ("run_bench", "tier_recall_1m") for r in recs[tag]
+            if r["config"] == "tier_recall"]:
+        log(f"drivers: {r['config']} {r.get('tier', '')} at {r['n']} rows: recall@10 "
+            f"{r['value']}" + (f", {1e3 * r['seconds_per_query']:.3f} ms a query"
+                               if "seconds_per_query" in r else
+                               f", build {r['build_seconds']:.3f} s, "
+                               f"{r['speedup_vs_exact']:.2f}x the exact scan") + f" ({CARD})")
+    reuse, subset = bench[("line_reuse_edit", None)], bench[("subset_warm", None)]
+    (par,) = recs["daemon_parallel"]
+    log(f"drivers: line_reuse speedup {reuse['speedup']:.2f} ({reuse['value']:.4f} s against "
+        f"{reuse['without_reuse_s']:.4f} s); subset_vs_full {subset['subset_vs_full']:.3f} "
+        f"({subset['tier']}); parallel_over_batched {par['value']} ({CARD})")
+    for name in ("batched_scan", "batched_threshold"):
+        r = bench[(name, None)]
+        log(f"drivers: {name} {r['events_ms_per_call']:.3f} ms a call (Q 1,000 x "
+            f"{r['n_chunks']} rows), the distances alone {r['distances_events_ms']:.3f} ms: the "
+            f"selection {100 * (1 - r['distances_events_ms'] / r['events_ms_per_call']):.1f}% "
+            f"({CARD})")
+    e2e = bench[("search_e2e", None)]
+    log(f"drivers: search_e2e {e2e['value']:.4f} s: {stage_shares(e2e['stages_s'], e2e['value'])}")
+    (ws,) = recs["workspace_e2e"]
+    log(f"drivers: workspace_e2e cold build {ws['walls_s']['cold']:.3f} s over "
+        f"{ws['total_lines']} lines: {stage_shares(ws['stages_s']['cold'], ws['walls_s']['cold'])}")
+    log(f"drivers: launches {dict(sorted(DRIVERS_LAUNCHES.items()))}; walls "
+        f"{ {k: round(v, 1) for k, v in res['walls_s'].items()} }")
+    log(f"drivers: phase 17 done in {time.perf_counter() - t0:.1f} s ({CARD})")
+
+
 def main() -> int:
     if not (REPO / "semtools_tpu_torch").is_dir() or not (REPO / "cpp").is_dir():
         print("error: run chip_smoke.py from a checkout of the repository", file=sys.stderr)
@@ -3757,7 +3835,13 @@ def main() -> int:
                 else:
                     os.environ["HOME"] = old_home
         log(f"parse: done in {time.perf_counter() - t0:.1f} s ({card})")
-    soak_phase()
+    # phase 17 beside phase 12: both run child processes that spend most of
+    # their time on the host, and in turn they would take the script near
+    # its time limit on a slow host
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        drivers = pool.submit(drivers_phase)
+        soak_phase()
+        drivers.result()
     eval_phase()
     tier_phase()
     scale_phase()
@@ -3797,6 +3881,7 @@ def main() -> int:
             "tier_launches": TIER_LAUNCHES.get(name, 0),
             "ladder_launches": LADDER_LAUNCHES.get(name, 0),
             "behaviour_launches": BEHAVIOUR_LAUNCHES.get(name, 0),
+            "drivers_launches": DRIVERS_LAUNCHES.get(name, 0),
         })
     for name, r in probes.items():  # launches on each probe module's own run
         summary["kernels"].append({
@@ -3813,6 +3898,7 @@ def main() -> int:
             "tier_launches": TIER_LAUNCHES.get(name, 0),
             "ladder_launches": LADDER_LAUNCHES.get(name, 0),
             "behaviour_launches": BEHAVIOUR_LAUNCHES.get(name, 0),
+            "drivers_launches": DRIVERS_LAUNCHES.get(name, 0),
         })
     log(f"stream_roof_gbps: {roof:.1f} ({card or 'card name and power limit unavailable'})")
     log(card or "nvidia-smi: name and power limit unavailable")

@@ -388,6 +388,10 @@ def _run_reader(argv, stdin_text, cwd, env_overrides) -> dict:
 class _Server(socketserver.ThreadingUnixStreamServer):
     daemon_threads = True
     allow_reuse_address = True
+    # The listen backlog. socketserver's default is 5, and an agent lands
+    # many searches at once: a client that connects with a timeout gets
+    # EAGAIN, not a wait, when the backlog is full, and runs locally.
+    request_queue_size = socket.SOMAXCONN
 
 
 def serve(warm: bool = True) -> None:

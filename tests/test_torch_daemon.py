@@ -288,6 +288,42 @@ def test_concurrent_searches_truly_overlap(running_daemon, monkeypatch):
         assert resp is not None and resp["exit"] == 0 and resp["stdout"] == f"served q{i}\n"
 
 
+def test_connection_burst_waits_in_the_backlog(running_daemon, monkeypatch):
+    """Clients that connect while the accept loop is held up wait in the
+    listen backlog: a client with a timeout whose connect finds the backlog
+    full gets EAGAIN at once, and forwarding then runs the command locally.
+    The loop is stalled after its first accept, 32 clients connect, and each
+    gets the daemon's answer once it goes on."""
+    n = 32
+    release, stalled = threading.Event(), threading.Event()
+    real_verify = daemon._Server.verify_request
+
+    def stall_once(self, request, client_address):
+        if not stalled.is_set():
+            stalled.set()
+            release.wait(timeout=30)
+        return real_verify(self, request, client_address)
+
+    monkeypatch.setattr(daemon._Server, "verify_request", stall_once)
+    first = threading.Thread(target=daemon.ping)
+    first.start()
+    assert stalled.wait(timeout=10)
+    results = [None] * n
+
+    def one(i):
+        results[i] = daemon._request({"op": "ping"}, timeout=30)
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    time.sleep(0.5)  # every connect has landed in the backlog, or failed
+    release.set()
+    for t in [first, *threads]:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in [first, *threads])
+    assert all(r is not None and r.get("ok") for r in results), results
+
+
 def test_concurrent_real_searches_end_to_end(running_daemon):
     results = [None] * 6
 

@@ -545,7 +545,10 @@ def test_port_probes_never_import_jax(tmp_path):
     nothing of jax or of the JAX package. The store-scale drivers run at
     tiny sizes: the ladder at a 256 KiB budget (60-row docs), the IVF-PQ
     drivers at 3,000 rows and the patch at 1,004 x 50 and a 3,000-line
-    document."""
+    document; the measurement drivers too: ``run_bench --small`` (two
+    configs), ``workspace_e2e`` and ``daemon_parallel`` at 24 papers (the
+    ``potion_mini`` artifacts), the embed drivers at 2^12 tokens, and
+    ``gen_corpus`` (which takes no device) at 2 x 5."""
     import shutil
 
     root = tmp_path / "port_only"
@@ -560,9 +563,18 @@ def test_port_probes_never_import_jax(tmp_path):
         ann_scale=[["--rows", "3000", "--clusters", "64", "--queries", "5", *out]],
         ann_incremental=[["--rows", "3000", "--docs", "20", *out]],
         patch_scale=[["--docs", "1004", "--lines", "50", *out],
-                     ["--single-file", "--lines", "3000", *out]])
+                     ["--single-file", "--lines", "3000", *out]],
+        run_bench=[["--small", "--configs", "search_e2e,batched_threshold", *out]],
+        workspace_e2e=[["--papers", "24", *out]],
+        daemon_parallel=[["--papers", "24", "--parallel", "2", *out]],
+        embed_baseline=[["--tokens", "4096", "--lines", "256", *out]],
+        embed_variants=[["--tokens", "4096", "--lines", "256", *out]],
+        gen_corpus=[[str(tmp_path / "corpus"), "--files", "2", "--lines", "5"]])
+    no_device = ["gen_corpus"]
     assert {"stream_sweep", "kernel_variants", "int8_phase1", "int4_sweep", "int4_unpack",
-            "capacity_ladder", "ann_scale", "ann_incremental", "patch_scale"} <= set(names)
+            "capacity_ladder", "ann_scale", "ann_incremental", "patch_scale", "run_bench",
+            "workspace_e2e", "daemon_parallel", "embed_baseline", "embed_variants",
+            "gen_corpus", "drivers"} <= set(names)
     script = (
         "import contextlib, importlib, io, sys\n"
         "import semtools_tpu_torch.ops.probes\n"
@@ -571,14 +583,17 @@ def test_port_probes_never_import_jax(tmp_path):
         "    if hasattr(mod, 'main'):\n"
         f"        for args in {runs!r}[name]:\n"
         "            with contextlib.redirect_stdout(io.StringIO()):\n"
-        "                assert mod.main(['--device', 'cpu', *args]) == 0, (name, args)\n"
+        f"                device = [] if name in {no_device!r} else ['--device', 'cpu']\n"
+        "                assert mod.main([*device, *args]) == 0, (name, args)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'semtools_tpu'))\n"
         "assert not bad, bad\n"
         "print('NO_JAX_OK')\n"
     )
+    env = dict(os.environ, PYTHONPATH=str(root),
+               SEMTOOLS_TPU_MODEL_DIR=str(REPO / "tests" / "fixtures" / "potion_mini"))
     proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
-                          env=dict(os.environ, PYTHONPATH=str(root)), capture_output=True,
+                          env=env, capture_output=True,
                           text=True, stdin=subprocess.DEVNULL, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("NO_JAX_OK")
