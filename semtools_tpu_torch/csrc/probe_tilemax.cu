@@ -23,11 +23,13 @@
 //   0 bf16 rows, bf16 mma            6 int4 split-half, uint8 bytes (P4)
 //   1 int8 rows, convert to bf16     7 int4 split-half, shift unpack
 //   2 int8 rows, s8 mma              8 int4 split-half, `& 15` unpack
-//   3 int8 rows, f32 FMA             9 int4 split-half, float floor unpack
+//   3 int8 rows, tf32 mma            9 int4 split-half, float floor unpack
 //   4 int8 column sums via bf16      10 int4 interleaved (native)
 //   5 int8 column sums in int32
 // Every int4 instance converts to bf16 and multiplies on the bf16 tensor
-// cores, as the TPU probes convert and use the matrix unit.
+// cores, as the TPU probes convert and use the matrix unit; the f32 dot
+// (bench_int8_phase1.py k_f32dot casts both sides to f32 for the matrix
+// unit) runs on the TF32 tensor cores.
 //
 // Layout. A block is 4 warps; each warp takes spans of `span` rows (inside
 // one sub-tile) grid-stride, in m-tiles of 16 rows: `mma.sync` with corpus
@@ -39,22 +41,36 @@
 // summed in any order, so the k slots of each mma step are mapped to the
 // dims of the lane's own chunks, A and B alike: no shuffle or shared-memory
 // staging is needed, and the query fragments are built once per thread in
-// registers for the kernel's life. The f32 recipe sums the same chunks on
-// the CUDA cores (queries in shared memory) and the 4 lanes of a row meet
-// by shuffles; the column sums keep 16 sums a chunk.
+// registers for the kernel's life (64 words for the tf32 recipe: a lane's
+// 64 dims of its query). The tf32 recipe (m16n8k8) makes each int8 value an
+// f32 without a conversion instruction: the byte, biased by 128, is put into
+// the low mantissa bits of 2^23 by one byte permute, and one subtraction of
+// 2^23 + 128 leaves the value; its 32 mma steps an m-tile go to two
+// accumulators, so a dependent chain is 16 deep as in the bf16 recipe. It
+// loads one m-tile at a time (8 loads a lane in flight) and is given its own
+// register budget (MIN_BLOCKS below). The column sums keep 16 sums a chunk.
+//
+// Full sims (sub_rows = 1; _kern_once's shape). The wrapper gives a warp 64
+// rows (ops/probes.py launch_shape), so the 8,192 rows of the probe are 128
+// warps across the card, not 8 spans of 1,024 on 2 SMs. Each lane stores its
+// C fragment: the 8 lanes of a query write 32 contiguous bytes, a whole
+// sector. (Staging the fragments in shared memory for 16-byte stores was
+// slower here and cut ptxas's register budget of the int4 instances.)
 //
 // Exactness. Integer-valued recipes are exact: every product is an integer
 // and every sum stays below 2^24 (at most 256 * 127^2 = 4,129,024 for a dot,
-// 32,768 * 127 for a tile's column), so the mma's f32 or s32 accumulation,
-// the FMA and the float atomics add exactly in any order. bf16 rows sum in
-// the tensor core's f32 order.
+// 32,768 * 127 for a tile's column), so the mma's f32 or s32 accumulation
+// and the float atomics add exactly in any order; int8 values (|v| <= 127)
+// fit tf32's 10-bit mantissa. bf16 rows sum in the tensor core's f32 order.
 //
 // What bounds it on this card: bytes for every recipe on the tensor cores
-// (2 * Q = 16 operations a stored value, far below the bf16 and s8 ridges of
-// ~295 and ~590 a byte), and the f32 recipe's FMAs on the CUDA cores (41
-// GFLOP over 10M rows, ~0.61 ms at 67 TFLOP/s, near the 0.76 ms of bytes).
-// Loads are plain 16-byte loads, several a thread in flight; TMA and wgmma
-// are later work.
+// (2 * Q = 16 operations a stored value, far below the bf16, s8 and tf32
+// ridges of ~295, ~590 and ~148 a byte; the tf32 work over 10M rows is 41
+// GFLOP, ~0.08 ms at 495 TFLOP/s against 0.76 ms of bytes). The full sims
+// move 1.3 MB, under the launch's own cost: there the bound is the launch
+// floor, and the design only spreads the rows so that no SM walks them in
+// turn. Loads are plain 16-byte loads, several a thread in flight; TMA and
+// wgmma are later work.
 //
 // Interface: a plain C entry point (bound with ctypes) returning the
 // cudaError_t of its launch; the caller allocates the output (-inf filled
@@ -180,10 +196,10 @@ struct NativeRows {
   __device__ static int dim(int off, int i) { return 2 * (off + i); }
 };
 
-// What reduces the rows: the bf16 mma (any format above), the s8 mma, f32
-// FMA, or (no dot) column sums through bf16 or in int32; the last three
+// What reduces the rows: the bf16 mma (any format above), the s8 mma, the
+// tf32 mma, or (no dot) column sums through bf16 or in int32; the last four
 // take int8 rows.
-enum Dot { DOT_BF16, DOT_S8, DOT_F32, SUM_BF16, SUM_INT };
+enum Dot { DOT_BF16, DOT_S8, DOT_TF32, SUM_BF16, SUM_INT };
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], unsigned a0, unsigned a1, unsigned a2,
                                          unsigned a3, unsigned b0, unsigned b1) {
@@ -199,6 +215,22 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], unsigned a0, unsigned a1, un
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], unsigned a0, unsigned a1, unsigned a2,
+                                         unsigned a3, unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Byte k of `biased` (int8 bytes XOR 0x80, so byte k holds v + 128) as the
+// f32 (and tf32) value v: 2^23 + v + 128 is the float 0x4B0000xx, made by
+// one byte permute; one subtraction, exact, leaves v.
+__device__ __forceinline__ unsigned tf32_of(unsigned biased, int k) {
+  const unsigned bits = __byte_perm(biased, 0x4B000000u, 0x7440u | k);
+  return __float_as_uint(__uint_as_float(bits) - 8388736.0f);
 }
 
 // Float max through integer atomics: non-negative floats order as ints,
@@ -299,16 +331,24 @@ __device__ __forceinline__ float query_value(const Args& a, int g, int d) {
     return static_cast<float>(static_cast<const int8_t*>(a.q)[g * PDIM + d]);
 }
 
+// Blocks an SM must hold (__launch_bounds__), which sets ptxas's register
+// budget: 1 for the tf32 recipe, whose 64 query words and loads in flight
+// want ~154 registers (held to ptxas's default budget, 132, it held its
+// loads back: 1.48 ms at 10M rows on an H100 80GB HBM3 at 700 W, against
+// 0.86); 0, ptxas's default, for every other instance.
+template <int D>
+constexpr int MIN_BLOCKS = D == DOT_TF32 ? 1 : 0;
+
 template <class Fmt, int D>
-__global__ void __launch_bounds__(THREADS) probe_tilemax_kernel(const Args a) {
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS<D>) probe_tilemax_kernel(const Args a) {
   constexpr int RB = D == DOT_BF16 ? Fmt::ROW_BYTES : PDIM;
   constexpr int CH = RB / 64;
-  constexpr int MT = D == DOT_BF16 ? Fmt::MT : 2;
-  __shared__ float qs[D == DOT_F32 ? PQ * PDIM : 1];
+  constexpr int MT = D == DOT_BF16 ? Fmt::MT : D == DOT_TF32 ? 1 : 2;  // m-tiles a load group
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 
   // the B fragments (query g at the dims of the lane's chunks), for life
-  constexpr int QW = D == DOT_BF16 ? CH * Fmt::WPC : D == DOT_S8 ? CH * 4 : 1;
+  constexpr int QW = D == DOT_BF16 ? CH * Fmt::WPC : D == DOT_S8 ? CH * 4
+                     : D == DOT_TF32 ? CH * 16 : 1;
   unsigned qw[QW];
   if constexpr (D == DOT_BF16) {
 #pragma unroll
@@ -329,11 +369,15 @@ __global__ void __launch_bounds__(THREADS) probe_tilemax_kernel(const Args a) {
                                        q8 + g * PDIM + (4 * u + t) * 16 + 4 * i)
                                  : 0u;
     }
-  } else if constexpr (D == DOT_F32) {
+  } else if constexpr (D == DOT_TF32) {  // word u * 16 + j: dim (4u + t) * 16 + j
     const int8_t* q8 = static_cast<const int8_t*>(a.q);
-    for (int i = threadIdx.x; i < PQ * PDIM; i += THREADS)
-      qs[i] = i / PDIM < a.qn ? static_cast<float>(q8[i]) : 0.0f;
-    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < CH; ++u) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        qw[u * 16 + j] = __float_as_uint(
+            g < a.qn ? static_cast<float>(q8[g * PDIM + (4 * u + t) * 16 + j]) : 0.0f);
+    }
   }
 
   using Acc = typename std::conditional<D == SUM_INT, int, float>::type;
@@ -376,46 +420,26 @@ __global__ void __launch_bounds__(THREADS) probe_tilemax_kernel(const Args a) {
           }
 #pragma unroll
           for (int i = 0; i < 4; ++i) c[i] = static_cast<float>(ci[i]);
-        } else if constexpr (D == DOT_F32) {
-          float p[2][PQ] = {};
+        } else if constexpr (D == DOT_TF32) {
+          // step (u, i, h): k slot t is byte 2h of word i of chunk u, slot
+          // t + 4 byte 2h + 1; the two accumulators (by h) are summed at the
+          // end, exactly
+          float c1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
           for (int u = 0; u < CH; ++u) {
-            const int off = (4 * u + t) * 16;
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
-              const unsigned va = word(x[mt][0][u], i), vb = word(x[mt][1][u], i);
-#pragma unroll
-              for (int n = 0; n < PQ; ++n) {
-                const float4 qv = *reinterpret_cast<const float4*>(qs + n * PDIM + off + 4 * i);
-                p[0][n] = fmaf(static_cast<float>(sbyte(va, 0)), qv.x, p[0][n]);
-                p[0][n] = fmaf(static_cast<float>(sbyte(va, 1)), qv.y, p[0][n]);
-                p[0][n] = fmaf(static_cast<float>(sbyte(va, 2)), qv.z, p[0][n]);
-                p[0][n] = fmaf(static_cast<float>(sbyte(va, 3)), qv.w, p[0][n]);
-                p[1][n] = fmaf(static_cast<float>(sbyte(vb, 0)), qv.x, p[1][n]);
-                p[1][n] = fmaf(static_cast<float>(sbyte(vb, 1)), qv.y, p[1][n]);
-                p[1][n] = fmaf(static_cast<float>(sbyte(vb, 2)), qv.z, p[1][n]);
-                p[1][n] = fmaf(static_cast<float>(sbyte(vb, 3)), qv.w, p[1][n]);
-              }
+              const unsigned va = word(x[mt][0][u], i) ^ 0x80808080u;
+              const unsigned vb = word(x[mt][1][u], i) ^ 0x80808080u;
+              const int j = u * 16 + 4 * i;
+              mma_tf32(c, tf32_of(va, 0), tf32_of(vb, 0), tf32_of(va, 1), tf32_of(vb, 1),
+                       qw[j], qw[j + 1]);
+              mma_tf32(c1, tf32_of(va, 2), tf32_of(vb, 2), tf32_of(va, 3), tf32_of(vb, 3),
+                       qw[j + 2], qw[j + 3]);
             }
           }
-          // the 4 lanes of a row hold a quarter of its dims each
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int n = 0; n < PQ; ++n) {
-              p[h][n] += __shfl_xor_sync(FULL, p[h][n], 1);
-              p[h][n] += __shfl_xor_sync(FULL, p[h][n], 2);
-            }
-          // the C fragment's layout: queries 2t, 2t + 1
-#pragma unroll
-          for (int tt = 0; tt < 4; ++tt) {
-            if (t == tt) {
-              c[0] = p[0][2 * tt];
-              c[1] = p[0][2 * tt + 1];
-              c[2] = p[1][2 * tt];
-              c[3] = p[1][2 * tt + 1];
-            }
-          }
+          for (int i = 0; i < 4; ++i) c[i] += c1[i];
         } else {  // column sums of both rows into the lane's 16 columns a chunk
 #pragma unroll
           for (int h = 0; h < 2; ++h)
@@ -434,7 +458,7 @@ __global__ void __launch_bounds__(THREADS) probe_tilemax_kernel(const Args a) {
                 }
               }
         }
-        if constexpr (D == DOT_BF16 || D == DOT_S8 || D == DOT_F32)
+        if constexpr (D == DOT_BF16 || D == DOT_S8 || D == DOT_TF32)
           epilogue(a, c, r0 + 16 * mt, g, t, m);
       }
     }
@@ -497,7 +521,7 @@ int semtools_probe_tilemax(int variant, const void* q, const void* e, int qn, lo
     case 0: err = launch<Bf16Rows, DOT_BF16>(args, s); break;
     case 1: err = launch<Int8Rows, DOT_BF16>(args, s); break;
     case 2: err = launch<Int8Rows, DOT_S8>(args, s); break;
-    case 3: err = launch<Int8Rows, DOT_F32>(args, s); break;
+    case 3: err = launch<Int8Rows, DOT_TF32>(args, s); break;
     case 4: err = launch<Int8Rows, SUM_BF16>(args, s); break;
     case 5: err = launch<Int8Rows, SUM_INT>(args, s); break;
     case 6: err = launch<SplitRows<U8_SEXT>, DOT_BF16>(args, s); break;

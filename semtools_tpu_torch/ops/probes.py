@@ -70,7 +70,8 @@ STORAGES = {
 # (storage, recipe, reduce) -> (kernel instance, launch counter). Recipes
 # name the unit of the dot: ``plain`` bf16 rows and ``convert_bf16`` (int
 # values made bf16) on the bf16 tensor cores (mma m16n8k16), ``int_dot`` on
-# the int8 tensor cores (mma m16n8k32), ``f32_dot`` on the CUDA cores. With
+# the int8 tensor cores (mma m16n8k32), ``f32_dot`` (int values made f32) on
+# the TF32 tensor cores (mma m16n8k8; exact: |v| <= 127 fits tf32). With
 # ``reduce="sum"`` there is no dot: ``convert_bf16`` sums bf16-converted
 # values in f32 (k_convsum), ``plain`` sums the int8 values in int32
 # (k_stream). The kernel instance numbers are csrc/probe_tilemax.cu's.
@@ -269,12 +270,12 @@ def stream_ring(e: torch.Tensor, salt: int = 0, *, stage_rows: int, stages: int,
     return out
 
 
-def _span_rows(tile: int, sub_rows: int, reduce: str) -> int:
+def _span_rows(sub_rows: int) -> int:
     """Rows one warp of the tile-max kernel takes at a time: a multiple of
-    64 that divides the sub-tile (the tile when summing or writing every
-    row), at most 1,024."""
-    unit = tile if (reduce == "sum" or sub_rows == 1) else sub_rows
-    return 16 * math.gcd(unit // 16, 64)
+    64 that divides the sub-tile (a column sum's sub-tile is its tile), at
+    most 1,024; 64 when writing every row's sims (``sub_rows=1``), so that
+    the rows spread over the card."""
+    return 64 if sub_rows == 1 else 16 * math.gcd(sub_rows // 16, 64)
 
 
 def _check_probe(q, e, storage, recipe, reduce, tile, sub_rows):
@@ -321,7 +322,7 @@ def tilemax_probe(q, e, n_true: Optional[int] = None, *, tile: int, storage: str
                                        reduce=reduce, sub_rows=sub_rows)
     instance, counter = VARIANTS[(storage, recipe, reduce)]
     num_tiles, qn = -(-e.shape[0] // tile), q.shape[0]
-    span = _span_rows(tile, sub_rows, reduce)
+    span = _span_rows(sub_rows)
     shape = (num_tiles, qn, tile // sub_rows)
     atomic = reduce == "sum" or (sub_rows > 1 and span < sub_rows)
     if reduce == "sum":

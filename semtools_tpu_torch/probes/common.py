@@ -38,7 +38,7 @@ class Case:
     vectors: int  # corpus rows the call reads
     nbytes: int  # bytes it must move: each input read once, the output written once
     ops: float  # operations on its unit
-    unit: str  # the unit whose peak bounds the operations: f32, bf16 or int8
+    unit: str  # the unit whose peak bounds the operations: f32, tf32, bf16 or int8
     library: Optional[Callable[[], torch.Tensor]] = None  # one PyTorch call, same function
     tol: float = 0.0  # against the plain version: 0 is bit-equal
     ms: Optional[float] = None  # per call, on the card

@@ -8,9 +8,10 @@ Counterpart of ``benchmarks/quantitative/bench_int8_phase1.py``:
     python -m semtools_tpu_torch.probes.int8_phase1 [--rows N] [--device cpu]
 
 Kernel ``probe_tilemax`` (``ops/probes.py``): ``convert_bf16`` on the bf16
-tensor cores, ``int_dot`` on the int8 tensor cores, ``f32_dot`` on the CUDA
-cores; the column sums (first Q columns of each tile's sums; every column
-is summed) through bf16 in f32, and in int32.
+tensor cores, ``int_dot`` on the int8 tensor cores, ``f32_dot`` (the values
+made f32, as the JAX probe casts them) on the TF32 tensor cores; the column
+sums (first Q columns of each tile's sums; every column is summed) through
+bf16 in f32, and in int32.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ BODIES = {
     "convert_sum_vecs_per_ms": ("convert_bf16", False, "sum", "f32"),
     "pure_stream_vecs_per_ms": ("plain", False, "sum", "f32"),
     "int8_direct_dot_vecs_per_ms": ("int_dot", False, "max", "int8"),
-    "f32_convert_dot_vecs_per_ms": ("f32_dot", False, "max", "f32"),
+    "f32_convert_dot_vecs_per_ms": ("f32_dot", False, "max", "tf32"),
 }
 
 

@@ -277,6 +277,28 @@ def test_tilemax_probe_ragged_and_masked_edges():
         pr.stream_ring(e, stage_rows=512, stages=8)  # over a block's shared memory
 
 
+# -- the kernel's launch shape ------------------------------------------------------------
+
+
+# (sub_rows, span): the probes' own calls keep their spans: P2's, P3's and
+# P4's tile maxima (tiles 2,048-8,192), P5's 512-row sub-tiles (tiles
+# 8,192-32,768)
+TILES = sorted({c[2] for c in kernel_variants.CASES} | {int8_phase1.TILE, int4_sweep.TILE})
+SPANS = [(tile, 1024) for tile in TILES] + [(int4_unpack.SUB, 512)]
+
+
+@pytest.mark.parametrize("sub_rows,span", SPANS)
+def test_subtile_and_tile_maxima_keep_their_spans(sub_rows, span):
+    assert pr._span_rows(sub_rows) == span
+
+
+def test_full_sims_spread_over_the_card():
+    """The floor scheme's full sims (one tile of 8,192 rows, sub_rows 1) are
+    spans of 64 rows, one warp each: 128 warps, not 8 spans of 1,024."""
+    span = pr._span_rows(1)
+    assert span == 64 and int4_unpack.CHECK_ROWS // span == 128
+
+
 # -- the probe modules -----------------------------------------------------------------------------
 
 

@@ -66,6 +66,8 @@ def _close(got, want, storage):
 SHAPES = [(4096, 4096), (1024, 512), (512, 1)]
 PROBES = [(v, tile, sub) for v in sorted(pr.VARIANTS) for tile, sub in SHAPES
           if v[2] == "max" or sub == tile]
+# the f32 dot also at P3's tile, in the three output shapes
+PROBES += [(("int8", "f32_dot", "max"), 8192, sub) for sub in (8192, 512, 1)]
 
 
 @pytest.mark.cuda
@@ -101,6 +103,57 @@ def test_floor_full_sims_at_the_probe_shape(cuda_device):
     case = int4_unpack.floor_case(qv, q8)
     assert torch.equal(case.fn(), case.plain())
     assert int4_unpack.floor_oracle_err(case, qv, q8) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub_rows", [1, 512, 8192])
+@pytest.mark.parametrize("rows,queries", [(127, 127), (-127, 127), (127, -127), ("mixed", "mixed")])
+def test_f32_dot_at_the_extremes(cuda_device, rows, queries, sub_rows):
+    """Rows and queries of +-127 only: every sum is +-4,129,024 (256 * 127^2,
+    the largest a dot reaches) where both are constant, or any sum of 256
+    such products; the kernel equals the plain version and the exact sums."""
+    gen = torch.Generator().manual_seed(zlib.crc32(repr((rows, queries, sub_rows)).encode()))
+    n = 2 * 8192 + 333
+
+    def signs(value, shape):
+        if value == "mixed":
+            return (torch.randint(0, 2, shape, generator=gen, dtype=torch.int8) * 2 - 1) * 127
+        return torch.full(shape, value, dtype=torch.int8)
+
+    e = signs(rows, (n, pr.DIM)).to(cuda_device)
+    q = signs(queries, (8, pr.DIM)).to(cuda_device)
+    kw = dict(tile=8192, storage="int8", sub_rows=sub_rows)
+    got = pr.tilemax_probe(q, e, recipe="f32_dot", **kw)
+    torch.cuda.synchronize()
+    _close(got, pr.tilemax_probe_reference(q, e, **kw), "int8")
+    if sub_rows == 1:
+        sims = (q.cpu().long() @ e.cpu().long().T).float()  # [Q, n], exact
+        assert torch.equal(got.cpu().transpose(0, 1).reshape(8, -1)[:, :n], sims)
+        if rows != "mixed":
+            assert sims.abs().max().item() == 256 * 127 ** 2
+
+
+@pytest.mark.cuda
+def test_floor_full_sims_masked(cuda_device):
+    """The floor scheme's full sims of 8,192 rows with the last 333 masked:
+    bit-equal to the plain version and, on the kept rows, to the integer
+    oracle (the masked ones -inf)."""
+    from semtools_tpu_torch.probes import common, int4_unpack
+
+    gen = common.generator(cuda_device)
+    n = int4_unpack.CHECK_ROWS
+    qv = int4_unpack.values(n, gen, cuda_device)
+    q8 = int4_unpack.queries(gen, cuda_device)
+    e = pr.pack_split_half(qv, biased=True)
+    n_true = n - 333
+    kw = dict(tile=n, storage="int4_floor", sub_rows=1, masked=True)
+    got = pr.tilemax_probe(q8, e, n_true, recipe="convert_bf16", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pr.tilemax_probe_reference(q8, e, n_true, **kw))
+    qd, vd = q8.double(), qv.double()
+    oracle = qd[:, : pr.HALF] @ (vd[:, : pr.HALF] + 8).T + qd[:, pr.HALF:] @ vd[:, pr.HALF:].T
+    assert torch.equal(got[0, :, :n_true].double(), oracle[:, :n_true])
+    assert torch.isneginf(got[0, :, n_true:]).all()
 
 
 @pytest.mark.cuda
