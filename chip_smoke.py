@@ -1366,7 +1366,7 @@ def probe_ragged_checks(gen) -> None:
     """Every tile-max variant, masked and not, in three output shapes (a
     whole-tile max over two atomic spans, 512-row sub-tiles, every row's
     sims), and the stream kernels, at ragged small sizes, against the plain
-    versions."""
+    versions; the int4 rows hold every byte value."""
     import torch
 
     from semtools_tpu_torch.ops import probes as pr
@@ -1383,6 +1383,9 @@ def probe_ragged_checks(gen) -> None:
             else:
                 e = torch.randint(-127, 128, (n, width), generator=gen, device="cuda",
                                   dtype=torch.int8).view(dtype)
+                if storage.startswith("int4"):  # every byte value at every byte of a word
+                    e.view(torch.uint8)[:256] = (torch.arange(width, device="cuda")[None, :]
+                                                 + torch.arange(256, device="cuda")[:, None]) % 256
                 q = torch.randint(-127, 128, (8, pr.DIM), generator=gen, device="cuda",
                                   dtype=torch.int8)
             for n_true in (None, n - 400):

@@ -26,10 +26,17 @@
 //   3 int8 rows, tf32 mma            9 int4 split-half, float floor unpack
 //   4 int8 column sums via bf16      10 int4 interleaved (native)
 //   5 int8 column sums in int32
-// Every int4 instance converts to bf16 and multiplies on the bf16 tensor
-// cores, as the TPU probes convert and use the matrix unit; the f32 dot
+// Instances 7-9 convert each int4 value to bf16 (I2F, then F2FP) and
+// multiply on the bf16 tensor cores, as the TPU probes convert and use the
+// matrix unit: their probes measure those unpacks. The f32 dot
 // (bench_int8_phase1.py k_f32dot casts both sides to f32 for the matrix
-// unit) runs on the TF32 tensor cores.
+// unit) runs on the TF32 tensor cores. Instances 6 and 10 compute their
+// probes' function with no conversion a value (NibbleRows): an I2F issues at
+// a quarter of the integer rate (16 a clock an SM), which held them to half
+// of their bytes' bound; their nibbles, biased to 0..15, are s8 bytes after
+// three integer instructions for 8 values, for the s8 tensor cores. (bf16
+// built from the nibbles' bits, 0x4300 | u less 136 by one HFMA2 a pair,
+// took 11 instructions for 8 values and ran P4 at 62% of its bound.)
 //
 // Layout. A block is 4 warps; each warp takes spans of `span` rows (inside
 // one sub-tile) grid-stride, in m-tiles of 16 rows: `mma.sync` with corpus
@@ -61,7 +68,8 @@
 // and every sum stays below 2^24 (at most 256 * 127^2 = 4,129,024 for a dot,
 // 32,768 * 127 for a tile's column), so the mma's f32 or s32 accumulation
 // and the float atomics add exactly in any order; int8 values (|v| <= 127)
-// fit tf32's 10-bit mantissa. bf16 rows sum in the tensor core's f32 order.
+// fit tf32's 10-bit mantissa; the biased nibbles' s32 sums less 8 sum(q) are
+// exact. bf16 rows sum in the tensor core's f32 order.
 //
 // What bounds it on this card: bytes for every recipe on the tensor cores
 // (2 * Q = 16 operations a stored value, far below the bf16, s8 and tf32
@@ -92,7 +100,6 @@ constexpr int NWARPS = THREADS / 32;
 __device__ __forceinline__ int sbyte(unsigned w, int k) {
   return static_cast<int>(w << (24 - 8 * k)) >> 24;
 }
-__device__ __forceinline__ int ubyte(unsigned w, int k) { return (w >> (8 * k)) & 0xff; }
 __device__ __forceinline__ int sext4(int v) { return static_cast<int>(static_cast<unsigned>(v) << 28) >> 28; }
 __device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x, the lower half, is `lo`
@@ -133,15 +140,11 @@ struct Int8Rows {
 };
 
 // Nibble unpacks of one byte (k of word v) -> (lo, hi) values.
-enum Nibbles { U8_SEXT, S8_SHIFT, S8_AND, S8_FLOOR };
+enum Nibbles { S8_SHIFT, S8_AND, S8_FLOOR };
 
 template <int NIB>
 __device__ __forceinline__ void nibbles(unsigned v, int k, float& lo, float& hi) {
-  if constexpr (NIB == U8_SEXT) {  // bench_int4_sweep: (p << 28) >> 28, (p << 24) >> 28
-    const int b = ubyte(v, k);
-    lo = static_cast<float>(sext4(b));
-    hi = static_cast<float>(sext4(b >> 4));
-  } else if constexpr (NIB == S8_SHIFT) {  // sims_shift on a signed byte
+  if constexpr (NIB == S8_SHIFT) {  // sims_shift on a signed byte
     const int b = sbyte(v, k);
     lo = static_cast<float>(sext4(b));
     hi = static_cast<float>(b >> 4);
@@ -177,29 +180,43 @@ struct SplitRows {
   __device__ static int dim(int off, int i) { return i < 8 ? off + 2 * i : PDIM / 2 + off + 2 * (i - 8); }
 };
 
-// Interleaved (native int4): byte j holds dims 2j (low nibble) and 2j + 1.
-struct NativeRows {
-  static constexpr int ROW_BYTES = PDIM / 2, WPC = 16, MT = 4;
-  static constexpr bool BF16_QUERY = false;
+// Packed int4 rows as s8 bytes for the s8 mma, with no conversion
+// (variants 6 and 10). A two's complement nibble n (-8..7) with its top bit
+// flipped is u = n + 8 (0..15): (v & 0x0F0F0F0F) ^ 0x08080808 makes the low
+// nibbles of word v four s8 bytes u (one lop3), ((v >> 4) & 0x0F0F0F0F) ^
+// 0x08080808 the high ones (one shift and one lop3): 3 integer instructions
+// for 8 values. The dot of u is q . n + 8 sum(q); the kernel takes 8 sum(q)
+// off the int32 sum, exactly. Word 2i + h of a chunk holds the nibbles h
+// (0 low, 1 high) of the chunk's word i: byte b of it is nibble h of byte
+// off + 4i + b of the row, and dim() says which dim that is.
+//   SPLIT        P4's uint8 bytes: byte j holds dim j (low nibble) and
+//                dim 128 + j (bench_int4_sweep: (p << 28) >> 28, (p << 24) >> 28)
+//   INTERLEAVED  native int4: byte j holds dims 2j (low nibble) and 2j + 1
+enum Layout { SPLIT, INTERLEAVED };
+
+template <int L>
+struct NibbleRows {
+  static constexpr int ROW_BYTES = PDIM / 2, WPC = 8, MT = 4;  // WPC: s8 words a chunk
   __device__ static void unpack(const int4 x, unsigned* w) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const unsigned v = word(x, i);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        float lo, hi;
-        nibbles<S8_SHIFT>(v, k, lo, hi);
-        w[4 * i + k] = bf16x2(lo, hi);
-      }
+      w[2 * i] = (v & 0x0F0F0F0Fu) ^ 0x08080808u;
+      w[2 * i + 1] = ((v >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
     }
   }
-  __device__ static int dim(int off, int i) { return 2 * (off + i); }
+  // the dim of byte b of word i of the chunk at byte offset `off`
+  __device__ static int dim(int off, int i, int b) {
+    const int byte = off + 4 * (i / 2) + b, h = i % 2;
+    return L == INTERLEAVED ? 2 * byte + h : h * (PDIM / 2) + byte;
+  }
 };
 
-// What reduces the rows: the bf16 mma (any format above), the s8 mma, the
-// tf32 mma, or (no dot) column sums through bf16 or in int32; the last four
-// take int8 rows.
-enum Dot { DOT_BF16, DOT_S8, DOT_TF32, SUM_BF16, SUM_INT };
+// What reduces the rows: the bf16 mma (the bf16 formats above), the s8 mma
+// of int8 rows or of biased nibbles (NibbleRows), the tf32 mma, or (no dot)
+// column sums through bf16 or in int32; DOT_S8 and the last three take int8
+// rows.
+enum Dot { DOT_BF16, DOT_S8, DOT_S8_BIASED, DOT_TF32, SUM_BF16, SUM_INT };
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], unsigned a0, unsigned a1, unsigned a2,
                                          unsigned a3, unsigned b0, unsigned b1) {
@@ -341,15 +358,16 @@ constexpr int MIN_BLOCKS = D == DOT_TF32 ? 1 : 0;
 
 template <class Fmt, int D>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<D>) probe_tilemax_kernel(const Args a) {
-  constexpr int RB = D == DOT_BF16 ? Fmt::ROW_BYTES : PDIM;
+  constexpr bool FMT = D == DOT_BF16 || D == DOT_S8_BIASED;  // rows in Fmt's format
+  constexpr int RB = FMT ? Fmt::ROW_BYTES : PDIM;
   constexpr int CH = RB / 64;
-  constexpr int MT = D == DOT_BF16 ? Fmt::MT : D == DOT_TF32 ? 1 : 2;  // m-tiles a load group
+  constexpr int MT = FMT ? Fmt::MT : D == DOT_TF32 ? 1 : 2;  // m-tiles a load group
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 
   // the B fragments (query g at the dims of the lane's chunks), for life
-  constexpr int QW = D == DOT_BF16 ? CH * Fmt::WPC : D == DOT_S8 ? CH * 4
-                     : D == DOT_TF32 ? CH * 16 : 1;
+  constexpr int QW = FMT ? CH * Fmt::WPC : D == DOT_S8 ? CH * 4 : D == DOT_TF32 ? CH * 16 : 1;
   unsigned qw[QW];
+  int bias[2] = {0, 0};  // DOT_S8_BIASED: 8 sum(q) of queries 2t, 2t + 1
   if constexpr (D == DOT_BF16) {
 #pragma unroll
     for (int u = 0; u < CH; ++u) {
@@ -369,6 +387,27 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<D>) probe_tilemax_kernel(c
                                        q8 + g * PDIM + (4 * u + t) * 16 + 4 * i)
                                  : 0u;
     }
+  } else if constexpr (D == DOT_S8_BIASED) {
+    const int8_t* q8 = static_cast<const int8_t*>(a.q);
+    int sum = 0;  // query g over the lane's dims
+#pragma unroll
+    for (int u = 0; u < CH; ++u) {
+#pragma unroll
+      for (int i = 0; i < Fmt::WPC; ++i) {
+        unsigned w = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int v = g < a.qn ? q8[g * PDIM + Fmt::dim((4 * u + t) * 16, i, b)] : 0;
+          w |= (static_cast<unsigned>(v) & 0xffu) << (8 * b);
+          sum += v;
+        }
+        qw[u * Fmt::WPC + i] = w;
+      }
+    }
+    sum += __shfl_xor_sync(FULL, sum, 1);
+    sum += __shfl_xor_sync(FULL, sum, 2);
+    bias[0] = 8 * __shfl_sync(FULL, sum, 8 * t);  // lane (2t, 0)
+    bias[1] = 8 * __shfl_sync(FULL, sum, 8 * t + 4);
   } else if constexpr (D == DOT_TF32) {  // word u * 16 + j: dim (4u + t) * 16 + j
     const int8_t* q8 = static_cast<const int8_t*>(a.q);
 #pragma unroll
@@ -410,16 +449,26 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<D>) probe_tilemax_kernel(c
               mma_bf16(c, wa[2 * j], wb[2 * j], wa[2 * j + 1], wb[2 * j + 1],
                        qw[u * Fmt::WPC + 2 * j], qw[u * Fmt::WPC + 2 * j + 1]);
           }
-        } else if constexpr (D == DOT_S8) {
+        } else if constexpr (D == DOT_S8 || D == DOT_S8_BIASED) {
           int ci[4] = {0, 0, 0, 0};
 #pragma unroll
           for (int u = 0; u < CH; ++u) {
-            const int4 ra = x[mt][0][u], rb = x[mt][1][u];
-            mma_s8(ci, ra.x, rb.x, ra.y, rb.y, qw[u * 4], qw[u * 4 + 1]);
-            mma_s8(ci, ra.z, rb.z, ra.w, rb.w, qw[u * 4 + 2], qw[u * 4 + 3]);
+            if constexpr (D == DOT_S8) {
+              const int4 ra = x[mt][0][u], rb = x[mt][1][u];
+              mma_s8(ci, ra.x, rb.x, ra.y, rb.y, qw[u * 4], qw[u * 4 + 1]);
+              mma_s8(ci, ra.z, rb.z, ra.w, rb.w, qw[u * 4 + 2], qw[u * 4 + 3]);
+            } else {
+              unsigned wa[Fmt::WPC], wb[Fmt::WPC];
+              Fmt::unpack(x[mt][0][u], wa);
+              Fmt::unpack(x[mt][1][u], wb);
+#pragma unroll
+              for (int j = 0; j < Fmt::WPC / 2; ++j)
+                mma_s8(ci, wa[2 * j], wb[2 * j], wa[2 * j + 1], wb[2 * j + 1],
+                       qw[u * Fmt::WPC + 2 * j], qw[u * Fmt::WPC + 2 * j + 1]);
+            }
           }
 #pragma unroll
-          for (int i = 0; i < 4; ++i) c[i] = static_cast<float>(ci[i]);
+          for (int i = 0; i < 4; ++i) c[i] = static_cast<float>(ci[i] - bias[i & 1]);
         } else if constexpr (D == DOT_TF32) {
           // step (u, i, h): k slot t is byte 2h of word i of chunk u, slot
           // t + 4 byte 2h + 1; the two accumulators (by h) are summed at the
@@ -458,7 +507,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<D>) probe_tilemax_kernel(c
                 }
               }
         }
-        if constexpr (D == DOT_BF16 || D == DOT_S8 || D == DOT_TF32)
+        if constexpr (D == DOT_BF16 || D == DOT_S8 || D == DOT_S8_BIASED || D == DOT_TF32)
           epilogue(a, c, r0 + 16 * mt, g, t, m);
       }
     }
@@ -524,11 +573,11 @@ int semtools_probe_tilemax(int variant, const void* q, const void* e, int qn, lo
     case 3: err = launch<Int8Rows, DOT_TF32>(args, s); break;
     case 4: err = launch<Int8Rows, SUM_BF16>(args, s); break;
     case 5: err = launch<Int8Rows, SUM_INT>(args, s); break;
-    case 6: err = launch<SplitRows<U8_SEXT>, DOT_BF16>(args, s); break;
+    case 6: err = launch<NibbleRows<SPLIT>, DOT_S8_BIASED>(args, s); break;
     case 7: err = launch<SplitRows<S8_SHIFT>, DOT_BF16>(args, s); break;
     case 8: err = launch<SplitRows<S8_AND>, DOT_BF16>(args, s); break;
     case 9: err = launch<SplitRows<S8_FLOOR>, DOT_BF16>(args, s); break;
-    case 10: err = launch<NativeRows, DOT_BF16>(args, s); break;
+    case 10: err = launch<NibbleRows<INTERLEAVED>, DOT_S8_BIASED>(args, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

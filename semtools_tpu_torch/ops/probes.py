@@ -71,7 +71,11 @@ STORAGES = {
 # name the unit of the dot: ``plain`` bf16 rows and ``convert_bf16`` (int
 # values made bf16) on the bf16 tensor cores (mma m16n8k16), ``int_dot`` on
 # the int8 tensor cores (mma m16n8k32), ``f32_dot`` (int values made f32) on
-# the TF32 tensor cores (mma m16n8k8; exact: |v| <= 127 fits tf32). With
+# the TF32 tensor cores (mma m16n8k8; exact: |v| <= 127 fits tf32). The
+# ``convert_bf16`` instances of ``int4_u8`` and ``int4_native`` keep their
+# probes' recipe name but run on the int8 tensor cores, with no conversion a
+# value: the nibbles biased to 0..15 as s8 bytes, 8 sum(q) taken off the
+# int32 sums (the same function, exactly). With
 # ``reduce="sum"`` there is no dot: ``convert_bf16`` sums bf16-converted
 # values in f32 (k_convsum), ``plain`` sums the int8 values in int32
 # (k_stream). The kernel instance numbers are csrc/probe_tilemax.cu's.

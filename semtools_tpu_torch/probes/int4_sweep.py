@@ -7,9 +7,10 @@ Counterpart of ``benchmarks/quantitative/bench_int4_sweep.py``:
 
     python -m semtools_tpu_torch.probes.int4_sweep [--rows N] [--device cpu]
 
-Kernel ``probe_tilemax`` (``ops/probes.py``, storage ``int4_u8``: unpack,
-convert to bf16, bf16 tensor cores). Prints ``max_tilemax_err`` (against an
-integer unpack and a float64 product) and then ``int4_sweep_vecs_per_ms``.
+Kernel ``probe_tilemax`` (``ops/probes.py``, storage ``int4_u8``: the
+nibbles biased to s8 bytes, int8 tensor cores; the JAX probe converts to
+bf16). Prints ``max_tilemax_err`` (against an integer unpack and a float64
+product) and then ``int4_sweep_vecs_per_ms``.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ def cases(q8: torch.Tensor, e4: torch.Tensor) -> List[common.Case]:
         "int4_sweep_vecs_per_ms", probes.VARIANTS[("int4_u8", "convert_bf16", "max")][1],
         lambda: probes.tilemax_probe(q8, e4, n, recipe="convert_bf16", **kw),
         lambda: probes.tilemax_probe_reference(q8, e4, n, **kw),
-        n, e4.numel() + q8.numel() + -(-n // TILE) * Q * 4, 2.0 * Q * n * probes.DIM, "bf16")]
+        n, e4.numel() + q8.numel() + -(-n // TILE) * Q * 4, 2.0 * Q * n * probes.DIM, "int8")]
 
 
 def run(args) -> Tuple[List[dict], List[common.Case]]:

@@ -13,9 +13,10 @@ Recipes (storage formats of kernel ``probe_tilemax``, ``ops/probes.py``):
 over the unbiased packing, ``native`` over an interleaved int4 array of N / 8
 rows (on the TPU only compiled), ``floor`` (float unpack) and ``and15`` over
 the biased one (low nibble lo + 8). Each unpacks, converts to bf16 and runs
-on the bf16 tensor cores. The floor scheme's full sims are one more call,
-over the first 8,192 rows of a biased corpus, held against the integer
-oracle (``Case.oracle_err``).
+on the bf16 tensor cores, but ``native``, whose nibbles go to the int8 tensor
+cores as biased s8 bytes with no conversion (the same sims, exactly). The
+floor scheme's full sims are one more call, over the first 8,192 rows of a
+biased corpus, held against the integer oracle (``Case.oracle_err``).
 """
 
 from __future__ import annotations
@@ -78,7 +79,7 @@ def cases(q8: torch.Tensor, packed: dict) -> List[common.Case]:
             lambda e=e, kw=kw: probes.tilemax_probe(q8, e, recipe="convert_bf16", **kw),
             lambda e=e, kw=kw: probes.tilemax_probe_reference(q8, e, **kw),
             n, e.numel() + q8.numel() + t * Q * (tile // SUB) * 4, 2.0 * Q * n * probes.DIM,
-            "bf16"))
+            "int8" if storage == "int4_native" else "bf16"))
     return out
 
 

@@ -227,6 +227,59 @@ def test_native_subtile_max_matches():
     assert np.array_equal(got.numpy(), want)
 
 
+# -- P4 and P5 native: the nibbles as biased s8 bytes -------------------------------------
+
+# storage -> the kernel's layout (csrc/probe_tilemax.cu NibbleRows<SPLIT>, <INTERLEAVED>)
+NIBBLE_LAYOUTS = {"int4_u8": "split", "int4_native": "interleaved"}
+
+
+def _nibble_dim(layout: str, off: int, i: int, b: int) -> int:
+    """``NibbleRows::dim``: the dim of byte b of word i of the chunk at byte
+    offset ``off`` (nibble i % 2 of byte off + 4 (i // 2) + b of the row)."""
+    byte, h = off + 4 * (i // 2) + b, i % 2
+    return 2 * byte + h if layout == "interleaved" else h * 128 + byte
+
+
+def _nibble_unpack(e: torch.Tensor, layout: str) -> torch.Tensor:
+    """``NibbleRows::unpack`` of every 16-byte chunk, word operation for word
+    operation, each s8 byte placed at ``_nibble_dim``: [n, 128] bytes ->
+    [n, 256] int64, the biased values n + 8."""
+    words = e.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF  # little endian
+    out = torch.full((e.shape[0], 256), -1000, dtype=torch.int64)
+    for c in range(8):  # chunk c: bytes 16c .. 16c + 15, words 4c .. 4c + 3
+        for j in range(4):
+            v = words[:, 4 * c + j]
+            for h, w in enumerate(((v & 0x0F0F0F0F) ^ 0x08080808,  # one lop3
+                                   ((v >> 4) & 0x0F0F0F0F) ^ 0x08080808)):  # a shift, a lop3
+                for b in range(4):
+                    byte = (w >> (8 * b)) & 0xFF
+                    out[:, _nibble_dim(layout, 16 * c, 2 * j + h, b)] = byte - (byte >> 7 << 8)
+    return out
+
+
+@pytest.mark.parametrize("storage", sorted(NIBBLE_LAYOUTS))
+def test_nibble_unpack_every_byte(storage):
+    """Every byte value at every byte of a word (row r, byte j holds (j + r)
+    mod 256): the kernel's s8 bytes are each nibble's two's complement value
+    plus 8, at the dims where the plain version puts that nibble; the s8 dot
+    less 8 sum(q) is the plain version's dot."""
+    layout = NIBBLE_LAYOUTS[storage]
+    dims = sorted(_nibble_dim(layout, off, i, b) for off in range(0, 128, 16)
+                  for i in range(8) for b in range(4))
+    assert dims == list(range(256))  # every dim exactly once a row
+    rows = (torch.arange(128)[None, :] + torch.arange(256)[:, None]) % 256
+    e = rows.to(torch.uint8).view(pr.STORAGES[storage][0])
+    got = _nibble_unpack(e, layout)
+    lo, hi = ((rows & 0xF) ^ 8) - 8, ((rows >> 4) ^ 8) - 8  # sext4 of each nibble
+    want = torch.stack((lo, hi), 2).flatten(1) if layout == "interleaved" \
+        else torch.cat((lo, hi), 1)
+    assert torch.equal(got - 8, want)
+    assert torch.equal(got - 8, pr.unpack_rows(e, storage).long())
+    assert got.min() == 0 and got.max() == 15  # s8 bytes, never negative
+    q = torch.from_numpy(np.random.default_rng(6).integers(-127, 128, (8, 256)))
+    assert torch.equal(got @ q.T - 8 * q.sum(1), want @ q.T)
+
+
 def test_floor_full_sims_match_kern_once():
     """P5d: the floor scheme's full sims (sub_rows=1), as _kern_once writes
     them, and the scripts' biased integer oracle; the probe module's own

@@ -7,9 +7,9 @@ This file imports neither jax nor tests/conftest.py's jax setup:
     python -m pytest --noconftest -m cuda tests/test_torch_probes_cuda.py -q
 
 Sizes are small and ragged: the last tile is partial, and masked runs cut
-it shorter still. Integer-valued variants must be bit-equal to the plain
-version (exact products, sums below 2^24); bf16 rows agree within 1e-5
-(summation order).
+it shorter still; int4 rows hold every byte value. Integer-valued variants
+must be bit-equal to the plain version (exact products, sums below 2^24);
+bf16 rows agree within 1e-5 (summation order).
 """
 
 from __future__ import annotations
@@ -42,7 +42,11 @@ def _rows(storage, n, gen):
         return (e / e.norm(dim=1, keepdim=True)).to(torch.bfloat16)
     if storage == "int8":
         return torch.randint(-127, 128, (n, width), generator=gen, dtype=torch.int8)
-    return torch.randint(0, 256, (n, width), generator=gen, dtype=torch.uint8).view(dtype)
+    e = torch.randint(0, 256, (n, width), generator=gen, dtype=torch.uint8)
+    # every byte value at every byte of a word: nibbles -8 and +7 in both
+    # halves, in every shift of P4's and P5 native's unpack
+    e[:256] = (torch.arange(width)[None, :] + torch.arange(256)[:, None]) % 256
+    return e.view(dtype)
 
 
 def _queries(storage, e, qn, gen):
@@ -66,15 +70,19 @@ def _close(got, want, storage):
 SHAPES = [(4096, 4096), (1024, 512), (512, 1)]
 PROBES = [(v, tile, sub) for v in sorted(pr.VARIANTS) for tile, sub in SHAPES
           if v[2] == "max" or sub == tile]
-# the f32 dot also at P3's tile, in the three output shapes
+# the f32 dot also at P3's tile, in the three output shapes; P4 and P5
+# native at their probes' own tiles (whole-tile maxima of 2,048 rows; 512-row
+# sub-tiles of 8,192)
 PROBES += [(("int8", "f32_dot", "max"), 8192, sub) for sub in (8192, 512, 1)]
+PROBES += [(("int4_u8", "convert_bf16", "max"), 2048, 2048),
+           (("int4_native", "convert_bf16", "max"), 8192, 512)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant,tile,sub_rows", PROBES,
                          ids=[f"{'-'.join(v)}-{t}-{s}" for v, t, s in PROBES])
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("qn", [8, 3])
+@pytest.mark.parametrize("qn", [8, 3, 1])
 def test_tilemax_probe_matches_plain(cuda_device, variant, tile, sub_rows, masked, qn):
     storage, recipe, reduce = variant
     gen = torch.Generator().manual_seed(zlib.crc32(repr((variant, tile, sub_rows, masked, qn))
