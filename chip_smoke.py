@@ -594,15 +594,18 @@ def after_phase1(t: dict, whole: str, phase1: str) -> None:
 def build_phase():
     from semtools_tpu_torch.ops import kernels
     from semtools_tpu_torch.ops.fused_scan import SUB_ROWS
-    from semtools_tpu_torch.utils import native
+    from semtools_tpu_torch.utils import native, tracing
 
     t0 = time.perf_counter()
-    path = kernels.build()
+    with tracing.record() as spans:
+        path = kernels.build()
+    nvcc = next((f"{(s.end - s.start) / 1e9:.2f}" for s in spans if s.name == "kernels.build"),
+                None)  # None: a cached build
     lib = kernels.library()
     if lib.semtools_scan_rows() != SUB_ROWS:
         raise AssertionError("kernel rows per block disagree with fused_scan.SUB_ROWS")
     log(f"build: kernels {path.name} ready in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {kernels.last_build_seconds} s, {len(kernels.SOURCES)} sources in parallel)")
+        f"(nvcc {nvcc} s, {len(kernels.SOURCES)} sources in parallel)")
     report = path.with_suffix(".log").read_text()
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
     spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", report)]

@@ -39,7 +39,7 @@ from torch import nn
 from semtools_tpu_torch.models.tokenizer import HashTokenizer, HFTokenizer
 from semtools_tpu_torch.ops.embed import embed_token_lists
 from semtools_tpu_torch.utils.platform import resolve_device
-from semtools_tpu_torch.utils.tracing import stage
+from semtools_tpu_torch.utils.tracing import span, stage
 
 MODEL_NAME = "minishlab/potion-multilingual-128M"
 
@@ -303,12 +303,13 @@ class StaticModel(nn.Module):
         """Embed a batch of texts -> [N, dim] float32 on the model's device."""
         with stage("tokenize"):
             token_lists = self.tokenizer.encode_batch(texts) if len(texts) else []
-        return embed_token_lists(
-            self.table,
-            token_lists,
-            max_length=max_length if max_length is not None else 1 << 30,
-            normalize=self.normalize,
-        )
+        with span("embed.pool"):
+            return embed_token_lists(
+                self.table,
+                token_lists,
+                max_length=max_length if max_length is not None else 1 << 30,
+                normalize=self.normalize,
+            )
 
     def encode_single(self, text: str) -> torch.Tensor:
         """Embed one text -> [dim] float32."""

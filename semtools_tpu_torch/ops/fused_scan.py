@@ -186,9 +186,12 @@ def rescan_topk(q, e, n_true: int, sub_ids, k: int):
     kt = check_subtile_ids(sub_ids, qn, k, e.device)
     vals = torch.empty((qn, k), dtype=torch.float32, device=e.device)
     idx = torch.empty((qn, k), dtype=torch.int64, device=e.device)
+    # held until the launch returns: freed earlier, another thread's
+    # allocation could take the block before the kernel writes it
+    scratch = rescan_scratch(qn, kt, e.device)
     code = kernels.library().semtools_fused_rescan_topk(
         q.data_ptr(), e.data_ptr(), _DTYPE_CODES[e.dtype], qn, e.shape[1], n_true,
-        sub_ids.data_ptr(), kt, k, rescan_scratch(qn, kt, e.device).data_ptr(),
+        sub_ids.data_ptr(), kt, k, scratch.data_ptr(),
         vals.data_ptr(), idx.data_ptr(), _stream(),
     )
     kernels.check(code, "fused_rescan_topk")

@@ -241,11 +241,11 @@ def launch_rescan_topk(fmt: str, q8, rows, n_true: int, sub_ids, k: int, mask=No
     kt = check_subtile_ids(sub_ids, qn, k, rows.device)
     vals = torch.empty((qn, k), dtype=torch.float32, device=rows.device)
     idx = torch.empty((qn, k), dtype=torch.int64, device=rows.device)
+    scratch = rescan_scratch(qn, kt, rows.device)  # held until the launch returns
     code = getattr(kernels.library(), f"semtools_{fmt}_rescan_topk")(
         q8.data_ptr(), rows.data_ptr(), None if mask is None else mask.data_ptr(),
         qn, q8.shape[1], n_true, sub_ids.data_ptr(), kt, k,
-        rescan_scratch(qn, kt, rows.device).data_ptr(), vals.data_ptr(), idx.data_ptr(),
-        _stream(),
+        scratch.data_ptr(), vals.data_ptr(), idx.data_ptr(), _stream(),
     )
     kernels.check(code, _kernel_name(fmt, "rescan_topk", mask))
     return vals, idx

@@ -26,11 +26,11 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 from typing import Dict, Optional
 
 from semtools_tpu_torch.utils.filelock import lock_exclusive, unlock
+from semtools_tpu_torch.utils.tracing import span
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG_DIR / "csrc"
@@ -61,8 +61,6 @@ _launches_lock = threading.Lock()
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
-# Seconds the last build took in this process (None: loaded a cached build).
-last_build_seconds: Optional[float] = None
 
 
 def launch_counts() -> Dict[str, int]:
@@ -124,8 +122,8 @@ def _run_all(steps) -> str:
 def build() -> Path:
     """Compile the kernel library if this source hash has no build yet;
     returns its path. The build log (ptxas register and shared-memory
-    report) sits beside it as ``.log``."""
-    global last_build_seconds
+    report) sits beside it as ``.log``; the compile is span
+    ``kernels.build``."""
     out = BUILD_DIR / f"libsemtools_kernels-{_source_key()}.so"
     if out.exists():
         return out
@@ -136,22 +134,22 @@ def build() -> Path:
             if out.exists():  # another process built it while we waited
                 return out
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            t0 = time.perf_counter()
             objs = [tmp.with_suffix(f".{Path(src).stem}.o") for src in SOURCES]
             steps = [([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(SRC_DIR / src)], obj)
                      for src, obj in zip(SOURCES, objs)]
-            try:
-                log = _run_all(steps)
-                log += _run_all([([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)], tmp)])
-            except BaseException:
-                tmp.unlink(missing_ok=True)
-                raise
-            finally:
-                for obj in objs:
-                    obj.unlink(missing_ok=True)
+            with span("kernels.build"):
+                try:
+                    log = _run_all(steps)
+                    log += _run_all([([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                                      tmp)])
+                except BaseException:
+                    tmp.unlink(missing_ok=True)
+                    raise
+                finally:
+                    for obj in objs:
+                        obj.unlink(missing_ok=True)
             out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
-            last_build_seconds = time.perf_counter() - t0
         finally:
             unlock(lock)
     return out

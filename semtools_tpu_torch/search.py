@@ -30,7 +30,7 @@ import torch
 from semtools_tpu_torch.utils.text import read_file_text, split_lines
 from semtools_tpu_torch.models.static_model import StaticModel
 from semtools_tpu_torch.ops.scan import batched_threshold_scan, cosine_distances, topk_scan
-from semtools_tpu_torch.utils.tracing import stage
+from semtools_tpu_torch.utils.tracing import span, stage
 
 
 @dataclass
@@ -111,13 +111,19 @@ def _result_for_line(
 
 def _corpus_of(documents: Sequence[Document]) -> Tuple[torch.Tensor, np.ndarray]:
     """The documents' rows as one [N, D] tensor, and each document's first
-    flat row ([len(documents) + 1] offsets)."""
-    starts = np.cumsum([0] + [len(d.lines) for d in documents])
-    mats = [d.embeddings for d in documents if len(d.lines)]
-    if not mats:
-        dim = documents[0].embeddings.shape[1] if documents else 0
-        return torch.zeros((0, dim), dtype=torch.float32), starts
-    return (mats[0] if len(mats) == 1 else torch.cat(mats, dim=0)), starts
+    flat row ([len(documents) + 1] offsets). Span ``search.corpus``, with
+    the bytes the concatenation writes (0 where one tensor is returned)."""
+    with span("search.corpus") as sp:
+        starts = np.cumsum([0] + [len(d.lines) for d in documents])
+        mats = [d.embeddings for d in documents if len(d.lines)]
+        if not mats:
+            dim = documents[0].embeddings.shape[1] if documents else 0
+            return torch.zeros((0, dim), dtype=torch.float32), starts
+        if len(mats) == 1:
+            return mats[0], starts
+        corpus = torch.cat(mats, dim=0)
+        sp.count("bytes", corpus.numel() * corpus.element_size())
+        return corpus, starts
 
 
 def search_documents(
@@ -139,43 +145,46 @@ def search_documents_batched(
 ) -> List[List[SearchResult]]:
     """Q query rows against the same corpus in one scan; per-query results
     match :func:`search_documents`. Threshold overrides top-k with an
-    unbounded hit count."""
-    qs = torch.as_tensor(query_embeddings, dtype=torch.float32)
-    if qs.ndim == 1:
-        qs = qs[None]
-    qn = int(qs.shape[0])
-    if not documents or qn == 0:
-        return [[] for _ in range(qn)]
-    corpus, starts = _corpus_of(documents)
-    if corpus.shape[0] == 0:
-        return [[] for _ in range(qn)]
+    unbounded hit count. Span ``search``, the root of the call's spans."""
+    with span("search"):
+        qs = torch.as_tensor(query_embeddings, dtype=torch.float32)
+        if qs.ndim == 1:
+            qs = qs[None]
+        qn = int(qs.shape[0])
+        if not documents or qn == 0:
+            return [[] for _ in range(qn)]
+        corpus, starts = _corpus_of(documents)
+        if corpus.shape[0] == 0:
+            return [[] for _ in range(qn)]
 
-    with stage("scan"):
-        from semtools_tpu_torch.parallel.mesh import mesh_size
-        from semtools_tpu_torch.store.store import _sharded_enabled
+        with stage("scan"):
+            from semtools_tpu_torch.parallel.mesh import mesh_size
+            from semtools_tpu_torch.store.store import _sharded_enabled
 
-        if _sharded_enabled(int(corpus.shape[0]), mesh_size(corpus.device)):
-            from semtools_tpu_torch.parallel import scan as sharded
+            if _sharded_enabled(int(corpus.shape[0]), mesh_size(corpus.device)):
+                from semtools_tpu_torch.parallel import scan as sharded
 
-            if config.max_distance is not None:
-                per = sharded.sharded_batched_threshold_scan(
-                    qs, corpus, float(config.max_distance))
+                if config.max_distance is not None:
+                    per = sharded.sharded_batched_threshold_scan(
+                        qs, corpus, float(config.max_distance))
+                else:
+                    per = zip(*sharded.sharded_topk_scan(qs, corpus, config.top_k))
+            elif config.max_distance is not None:
+                per = batched_threshold_scan(qs, corpus, float(config.max_distance))
             else:
-                per = zip(*sharded.sharded_topk_scan(qs, corpus, config.top_k))
-        elif config.max_distance is not None:
-            per = batched_threshold_scan(qs, corpus, float(config.max_distance))
-        else:
-            per = zip(*topk_scan(qs, corpus, config.top_k))
-        per = [(d.tolist(), i.tolist()) for d, i in per]
+                per = zip(*topk_scan(qs, corpus, config.top_k))
+            with span("search.fetch"):
+                per = [(d.tolist(), i.tolist()) for d, i in per]
 
-    out: List[List[SearchResult]] = []
-    for dists, idxs in per:
-        doc_of = np.searchsorted(starts, idxs, side="right") - 1
-        out.append([
-            _result_for_line(documents[di], flat - int(starts[di]), dist, config.n_lines)
-            for dist, flat, di in zip(dists, idxs, doc_of.tolist())
-        ])
-    return out
+        with span("search.results"):
+            out: List[List[SearchResult]] = []
+            for dists, idxs in per:
+                doc_of = np.searchsorted(starts, idxs, side="right") - 1
+                out.append([
+                    _result_for_line(documents[di], flat - int(starts[di]), dist, config.n_lines)
+                    for dist, flat, di in zip(dists, idxs, doc_of.tolist())
+                ])
+        return out
 
 
 def search_files(

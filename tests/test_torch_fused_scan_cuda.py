@@ -14,10 +14,13 @@ value); planted duplicate rows resolve to the lower index.
 
 from __future__ import annotations
 
+import threading
+
 import pytest
 import torch
 
 from semtools_tpu_torch.ops import fused_scan as fs
+from semtools_tpu_torch.ops import int8_scan as i8
 from semtools_tpu_torch.ops import kernels
 
 ATOL = 1e-5
@@ -151,3 +154,46 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         fs.scan_candidates(q, e, 513, 3)
     with pytest.raises(ValueError):
         fs.tilemax(q, e.cpu(), 512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["f32", "int8"])
+def test_two_threads_through_the_rescan_keep_their_scratch(cuda_device, route):
+    """Two threads at once, each a rescan and then a block of the rescan's
+    scratch size filled with -7: were the scratch freed before its launch,
+    the other thread's block could take its address and the rescan's keys
+    would land in the fill. Every fill stays -7 and every answer equals
+    the one the rescan gave alone."""
+    gen = torch.Generator().manual_seed(22)
+    n, qn, k = 200_003, 8, 10
+    e = _unit(gen, n, 256, cuda_device)
+    q = _unit(gen, qn, 256, cuda_device)
+    if route == "int8":
+        q, e = i8.quantize_global(q)[0], i8.quantize_global(e)[0]
+        sub_max, rescan = i8.tilemax(q, e, n), i8.rescan_topk
+    else:
+        sub_max, rescan = fs.tilemax(q, e, n), fs.rescan_topk
+    ids = fs.top_subtiles(sub_max, k)
+    want = [t.cpu() for t in rescan(q, e, n, ids, k)]
+    size = fs.rescan_scratch(qn, ids.shape[1], cuda_device).numel()
+    faults = []
+
+    def client():
+        try:
+            for _ in range(300):
+                v, i = rescan(q, e, n, ids, k)
+                fill = torch.full((size,), -7, dtype=torch.int64, device=cuda_device)
+                if not bool((fill == -7).all()):
+                    faults.append("a fill was overwritten")
+                if not (torch.equal(v.cpu(), want[0]) and torch.equal(i.cpu(), want[1])):
+                    faults.append("an answer changed")
+        except Exception as exc:  # noqa: BLE001 - reported by the assert below
+            faults.append(repr(exc))
+
+    threads = [threading.Thread(target=client) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert not faults, faults[:3]
