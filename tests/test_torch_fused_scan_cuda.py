@@ -197,3 +197,48 @@ def test_two_threads_through_the_rescan_keep_their_scratch(cuda_device, route):
         t.join(timeout=300)
     assert not any(t.is_alive() for t in threads)
     assert not faults, faults[:3]
+
+
+@pytest.mark.cuda
+def test_a_corpus_of_adjacent_views_is_scanned_in_place(cuda_device):
+    """Documents that hold adjacent row views of one tensor: the search
+    copies none of the corpus (its peak grows by far less than the corpus's
+    bytes) and goes the fused route, whose answers over the view are
+    bit-equal to those over a ``torch.cat`` copy of the same rows."""
+    from semtools_tpu_torch.ops.scan import topk_scan
+    from semtools_tpu_torch.search import (
+        Document,
+        SearchConfig,
+        _corpus_of,
+        search_documents_batched,
+    )
+
+    gen = torch.Generator().manual_seed(23)
+    n, qn, k = 400 * fs.SUB_ROWS + 77, 3, 10
+    rows = _unit(gen, n, 256, cuda_device)
+    cuts = [0, *sorted(torch.randperm(n - 1, generator=gen)[:999].add(1).tolist()), n]
+    docs = [Document(f"d{i}", [""] * (b - a), rows[a:b])
+            for i, (a, b) in enumerate(zip(cuts, cuts[1:]))]
+    q = _unit(gen, qn, 256, cuda_device)
+    cfg = SearchConfig(n_lines=0, top_k=k)
+    search_documents_batched(docs, q, cfg)  # builds the kernels
+
+    torch.cuda.synchronize(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    held = torch.cuda.memory_allocated(cuda_device)
+    before = kernels.launch_counts()
+    got = search_documents_batched(docs, q, cfg)
+    torch.cuda.synchronize(cuda_device)
+    assert torch.cuda.max_memory_allocated(cuda_device) - held < rows.numel() * 4 // 10
+    assert kernels.launch_counts()["fused_tilemax"] == before["fused_tilemax"] + 1
+
+    corpus, _ = _corpus_of(docs)
+    assert corpus.data_ptr() == rows.data_ptr() and corpus._base is rows
+    copy = torch.cat([d.embeddings for d in docs], dim=0)
+    assert copy.data_ptr() != rows.data_ptr()
+    view_d, view_i = topk_scan(q, corpus, k)
+    copy_d, copy_i = topk_scan(q, copy, k)
+    assert torch.equal(view_d, copy_d) and torch.equal(view_i, copy_i)
+    flat = [[(int(cuts[int(r.filename[1:])]) + r.match_line, r.distance) for r in per]
+            for per in got]
+    assert flat == [list(zip(i.tolist(), d.tolist())) for d, i in zip(copy_d, copy_i)]

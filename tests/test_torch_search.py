@@ -256,6 +256,9 @@ def test_row_slice_views_share_one_parent(model, fallback_model):
     corpus, starts = _corpus_of(docs)
     assert list(starts) == [0, 3, 5]  # each document's first row
     assert corpus.shape[0] == 5
+    # adjacent views of one encode: the corpus is a view of their rows, no copy
+    assert corpus.data_ptr() == docs[0].embeddings.data_ptr()
+    assert corpus._base is docs[0].embeddings._base
 
     # a filtered subset takes only its own rows
     corpus2, _ = _corpus_of([docs[1]])
@@ -266,3 +269,72 @@ def test_row_slice_views_share_one_parent(model, fallback_model):
     jdocs = jax_search.create_documents_from_contents(items, fallback_model, False)
     jcorpus, _ = jax_search._corpus_of(jdocs)
     np.testing.assert_allclose(corpus.numpy(), np.asarray(jcorpus), atol=1e-6, rtol=0)
+
+
+def _views(rows, bounds):
+    return [rows[a:b] for a, b in bounds]
+
+
+# Layouts of the documents' rows: one encode's five rows -> (each document's
+# embeddings, whether the corpus is a view of them). Only adjacent contiguous
+# row views of one tensor, in order, are handed over as a view; a document
+# with no lines holds no rows and breaks no adjacency.
+_LAYOUTS = {
+    "reversed": lambda rows: (_views(rows, [(3, 5), (0, 3)]), False),
+    "gap": lambda rows: (_views(rows, [(0, 2), (3, 5)]), False),
+    "two_encodes": lambda rows: ([rows[0:3], rows[3:5].clone()[0:2]], False),
+    # the next bytes in memory, but not a view of the same tensor (as two
+    # allocations side by side would be)
+    "adjacent_other_base": lambda rows: (
+        [rows[0:3], torch.empty(0).set_(rows.untyped_storage(), 3 * rows.shape[1],
+                                        (2, rows.shape[1]), (rows.shape[1], 1))], False),
+    "non_contiguous": lambda rows: ([rows[0:2], rows[2:5:2]], False),
+    "unaligned": lambda rows: (
+        _views(torch.cat([torch.zeros(1), rows.flatten()])[1:].view(rows.shape),
+               [(0, 3), (3, 5)]), False),
+    "empty_between": lambda rows: (
+        [rows[0:3], torch.zeros((0, rows.shape[1])), rows[3:5]], True),
+    "adjacent": lambda rows: (_views(rows, [(0, 3), (3, 5)]), True),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(_LAYOUTS))
+def test_corpus_is_a_view_only_of_adjacent_rows(model, layout):
+    """Every layout gives the rows ``torch.cat`` gives, row for row and bit
+    for bit, with each document's first row; only adjacent views in order
+    are handed over uncopied."""
+    from semtools_tpu_torch.search import Document, _corpus_of
+
+    rows = model.encode([f"line {i} of the shared encode" for i in range(5)])
+    mats, view = _LAYOUTS[layout](rows)
+    docs = [Document(f"d{i}", [f"l{j}" for j in range(len(m))], m) for i, m in enumerate(mats)]
+    corpus, starts = _corpus_of(docs)
+    assert torch.equal(corpus, torch.cat(mats, dim=0))
+    assert list(starts) == list(np.cumsum([0] + [len(m) for m in mats]))
+    shared = corpus.untyped_storage().data_ptr() == mats[0].untyped_storage().data_ptr()
+    assert shared is view
+    assert corpus.is_contiguous()
+
+
+@pytest.mark.parametrize("threshold", [None, 1.5])
+def test_view_and_separate_documents_give_the_same_results(model, threshold):
+    """The same rows as views of one encode and as separate clones: equal
+    results, distances to the bit, top-k and threshold."""
+    from semtools_tpu_torch.search import (
+        Document,
+        create_documents_from_contents,
+        search_documents_batched,
+    )
+
+    items = [("a", "alpha beta\ngamma delta\nalpha"), ("b", "beta\nalpha beta"),
+             ("c", "epsilon\nalpha beta\nzeta\ngamma")]
+    views = create_documents_from_contents(items, model, False)
+    clones = [Document(d.filename, d.lines, d.embeddings.clone()) for d in views]
+    q = model.encode(["alpha beta", "gamma"])
+    cfg = config(n_lines=1, top_k=4, max_distance=threshold)
+    got = search_documents_batched(views, q, cfg)
+    want = search_documents_batched(clones, q, cfg)
+    assert got and all(got)
+    for g, w in zip(got, want):
+        assert [(r.filename, r.match_line, r.start, r.end, r.lines, r.distance) for r in g] == \
+            [(r.filename, r.match_line, r.start, r.end, r.lines, r.distance) for r in w]

@@ -229,12 +229,11 @@ def _search_docs():
     return docs, torch.as_tensor(q), SearchConfig
 
 
-@pytest.mark.parametrize("threshold", [None, 1.5])
-def test_search_gives_its_span_tree(quiet, threshold):
+def _corpus_span(docs, q, SearchConfig, threshold):
+    """The ``search.corpus`` span of one search, after checking the search's
+    span tree."""
     from semtools_tpu_torch.search import search_documents_batched
 
-    docs, q, SearchConfig = _search_docs()
-    rows = sum(len(d.lines) for d in docs)
     config = SearchConfig(n_lines=1, top_k=2, max_distance=threshold)
     with tracing.record() as spans:
         out = search_documents_batched(docs, q, config)
@@ -247,9 +246,28 @@ def test_search_gives_its_span_tree(quiet, threshold):
     assert list(kids) == ["search.corpus", "scan", "search.results"]
     fetch = next(s for s in spans if s.name == "search.fetch")
     assert by_id[fetch.parent].name == "scan"
-    assert kids["search.corpus"].attrs == {"bytes": rows * docs[0].embeddings.shape[1] * 4}
     assert kids["search.corpus"].end <= kids["scan"].start <= kids["scan"].end \
         <= kids["search.results"].start
+    return kids["search.corpus"]
+
+
+@pytest.mark.parametrize("threshold", [None, 1.5])
+def test_search_gives_its_span_tree(quiet, threshold):
+    """Documents of one encode: their rows go to the scan as one view, which
+    writes no bytes."""
+    docs, q, SearchConfig = _search_docs()
+    assert _corpus_span(docs, q, SearchConfig, threshold).attrs == {"views": 1}
+
+
+@pytest.mark.parametrize("threshold", [None, 1.5])
+def test_separate_documents_count_the_bytes_they_copy(quiet, threshold):
+    from semtools_tpu_torch.search import Document
+
+    docs, q, SearchConfig = _search_docs()
+    docs = [Document(d.filename, d.lines, d.embeddings.clone()) for d in docs]
+    rows = sum(len(d.lines) for d in docs)
+    assert _corpus_span(docs, q, SearchConfig, threshold).attrs == {
+        "bytes": rows * docs[0].embeddings.shape[1] * 4}
 
 
 def test_one_document_writes_no_corpus_bytes(quiet):
