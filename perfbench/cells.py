@@ -5,7 +5,9 @@ metrics. Everything of one configuration, traffic mix, per-layer metric or
 cell lies in a file of its own under this folder, found by its name:
 
 - ``configs/<config>.json``: the deployment (corpus, vocabulary, model
-  shape, search settings);
+  shape, search settings, and the route it is served on: ``serve``
+  ``library``, the default, or ``workspace`` with its ``workspace``
+  settings; ``run.py`` says what each does);
 - ``traffic/<traffic>.json``: the mix (clients, queries a request, top-k or
   threshold, the query generator's parameters, how many requests are
   checked);
@@ -53,13 +55,19 @@ class Cell:
 
     def reader(self, metric: str) -> Callable:
         """``read`` of ``metrics/<metric>.py``."""
-        path = self.root / "metrics" / f"{metric}.py"
-        if not path.exists():
-            raise BenchError(f"{path} is missing")
-        spec = importlib.util.spec_from_file_location(f"perfbench_metric_{metric}", path)
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-        return module.read
+        return read_of(self.root, metric)
+
+
+def read_of(root: Path, metric: str) -> Callable:
+    """``read`` of ``root/metrics/<metric>.py``; a reader that reads what
+    another does under another name returns this."""
+    path = Path(root) / "metrics" / f"{metric}.py"
+    if not path.exists():
+        raise BenchError(f"{path} is missing")
+    spec = importlib.util.spec_from_file_location(f"perfbench_metric_{metric}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.read
 
 
 def _reports(metric: dict, workload: str) -> bool:

@@ -2,10 +2,15 @@
 the window's requests, judged against the plain reference.
 
 Per query, a result is (filename, lines, start, end, match_line,
-distance). The numbers, each over every checked query:
+distance). A result whose lines, start and end are all None carries no
+context (the workspace store's ``RankedLine``: path, line, distance; the CLI
+reads the context from the file when it prints); where no result carries
+any, ``context`` is left out of the numbers. The numbers, each over every
+checked query:
 
 - ``unanswered``: queries whose count of results is not min(k, rows) (top-k
-  mode only); exact, limit 0;
+  mode only), and results without context that name no row; exact,
+  limit 0;
 - ``order``: neighbouring results out of order (a larger distance first,
   or an equal one with the higher row first where the two rows are twins)
   or a row given twice; exact. Rows that tie only in exact arithmetic (the
@@ -14,8 +19,8 @@ distance). The numbers, each over every checked query:
 - ``ties``: results whose lower twins (rows of the same bits, so of the
   same distance to every query) are not all returned; exact;
 - ``context``: results whose filename, match line, context start, end or
-  lines differ from the reference's for that row, or that name no row;
-  exact;
+  lines differ from the reference's for that row, or that name no row, and,
+  where some results carry context, the results that carry none; exact;
 - ``dist_err``: the widest gap between a result's distance and the
   reference's distance of the same row;
 - ``rank_gap`` (top-k): the widest amount by which the i-th nearest of the
@@ -64,11 +69,19 @@ def judge(results: Sequence[Sequence[tuple]], q: torch.Tensor, e: torch.Tensor,
     out["unanswered"] += extra
     out["dist_err"] = 0.0
     rows_of: List[List[int]] = []
+    bare = carried = 0  # results without and with context
     for res in results:
         rows = []
         for (fname, ctx, start, end, line, _dist) in res:
             row = layout.row(index, fname, line)
             rows.append(row)
+            if ctx is None and start is None and end is None:
+                bare += 1
+                if row < 0:
+                    out["unanswered"] += 1
+                    note("unanswered", f"{fname!r} line {line} names no row")
+                continue
+            carried += 1
             if row < 0:
                 out["context"] += 1
                 note("context", f"{fname!r} line {line} names no row")
@@ -144,6 +157,11 @@ def judge(results: Sequence[Sequence[tuple]], q: torch.Tensor, e: torch.Tensor,
             if len(over):
                 out["threshold_gap"] = max(out["threshold_gap"],
                                            float(np.max(over - max_distance)))
+    if bare and not carried:
+        del out["context"]
+    elif bare:
+        out["context"] += bare
+        note("context", f"{bare} results carry no context beside {carried} that do")
     return out
 
 

@@ -87,6 +87,23 @@ def _empty() -> Summary:
     return Summary(0.0, 0.0, [], [], 0)
 
 
+def busy_seconds(events) -> float:
+    """Seconds in which any device operation ran (the union of their
+    intervals), over all of ``events``: a trace of device activity alone,
+    started and stopped around the window with the device synchronised at
+    both ends, so every operation in it is the window's."""
+    iv = np.array([(e.start_ns(), e.duration_ns()) for e in events
+                   if e.device_type() != DeviceType.CPU and e.duration_ns() > 0],
+                  np.int64).reshape(-1, 2)
+    if not len(iv):
+        return 0.0
+    iv = iv[np.argsort(iv[:, 0], kind="stable")]
+    start, end = iv[:, 0], iv[:, 0] + iv[:, 1]
+    reach = np.maximum.accumulate(end)
+    gaps = np.maximum(start[1:] - reach[:-1], 0).sum()
+    return float(reach[-1] - start[0] - gaps) / 1e9
+
+
 def _span_at(starts: np.ndarray, ends: np.ndarray, t: np.ndarray) -> np.ndarray:
     """Index of the span (sorted, not overlapping) holding each time, -1
     for none."""

@@ -77,3 +77,4 @@ def test_control_fails_on_the_card_at_the_fused_path(tiny_bench, cuda_device):
                       device=cuda_device, tf32_control=True)
     assert res["correct"], res["checks"]
     assert not res["control_correct"], res["control_checks"]
+    assert res["metrics"]["search_device_ms"]["value"] > 0  # the device's trace was read

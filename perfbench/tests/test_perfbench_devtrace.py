@@ -99,3 +99,15 @@ def test_two_clients_idle_gaps_are_listed_apart():
     for c in (0, 1):
         assert sum(v for k, v in s.idle if k.startswith(f"client {c}:")) == \
             pytest.approx(s.window_s - s.busy_s)
+
+
+def test_busy_seconds_are_the_union_of_the_device_s_intervals():
+    events = [
+        Ev("cudaLaunchKernel", False, 0, 500),  # the host's call is not device time
+        Ev("k1", True, 100, 200),
+        Ev("k2", True, 250, 100),  # overlaps k1: 100-350
+        Ev("copy", True, 400, 50),  # 400-450
+        Ev("empty", True, 460, 0),
+    ]
+    assert devtrace.busy_seconds(events) == pytest.approx(300e-9)
+    assert devtrace.busy_seconds([Ev("cudaLaunchKernel", False, 0, 5)]) == 0.0
