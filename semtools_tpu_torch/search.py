@@ -312,8 +312,7 @@ def _workspace_update(files, model, config, store) -> None:
     from semtools_tpu_torch.store.store import CURRENT_EMBEDDING_VERSION
     from semtools_tpu_torch.utils.hashing import line_content_hash
 
-    with stage("read_files"):  # stat every file, read the new/changed ones
-        states = store.analyze_document_states(files)
+    states = store.analyze_document_states(files)  # stat every file, read the new/changed ones
 
     lines_upserted = 0
     lines_reused = 0
@@ -395,20 +394,25 @@ def search_with_workspace_batched(
 ):
     """Batched :func:`search_with_workspace`: one incremental update, all
     queries embedded in one encode, one batched store scan. Returns
-    ``List[List[RankedLine]]`` in query order."""
+    ``List[List[RankedLine]]`` in query order. Its spans: ``search`` at the
+    root, ``store.open`` (the workspace's config and the store's
+    database), the update's stages (the store's ``read_files`` first), the
+    store's ``store_scan``, ``store.close``."""
     from semtools_tpu_torch.store import Store, Workspace
 
     if not queries:
         return []
-    qs = _encode_queries(queries, model, config).cpu().numpy()
-    ws = Workspace.open(workspace_name)
-    store = Store(ws.config.root_dir, dim=model.dim, model_name=model.name,
-                  device=model.device)
-    try:
-        _workspace_update(files, model, config, store)
-        with stage("store_scan"):
+    with span("search"):
+        qs = _encode_queries(queries, model, config).cpu().numpy()
+        with span("store.open"):
+            ws = Workspace.open(workspace_name)
+            store = Store(ws.config.root_dir, dim=model.dim, model_name=model.name,
+                          device=model.device)
+        try:
+            _workspace_update(files, model, config, store)
             return store.search_line_embeddings_batched(
                 qs, list(files), config.top_k, config.max_distance
             )
-    finally:
-        store.close()
+        finally:
+            with span("store.close"):
+                store.close()

@@ -1480,37 +1480,46 @@ class Store:
     # -- change detection --------------------------------------------------
 
     def analyze_document_states(self, file_paths: Sequence[str]) -> List[DocumentState]:
-        existing = self.get_existing_docs(file_paths)
-        states: List[DocumentState] = []
-        for path in file_paths:
-            try:
-                st = os.stat(path)
-            except OSError:
-                continue  # missing files are skipped (store.rs:613-616)
-            current = DocMeta(
-                path=path,
-                size_bytes=st.st_size,
-                mtime=int(st.st_mtime),
-                _version=CURRENT_EMBEDDING_VERSION,
-            )
-            prev = existing.get(path)
-            if prev is None:
-                states.append(
-                    DocumentState.new(DocumentInfo(path, read_file_text(path), current))
+        """Each path's state against its stored metadata; a new or changed
+        file is read. Its stage ``read_files`` counts the ``files`` checked,
+        the ``changed`` (new or changed) and the ``bytes`` read."""
+        with stage("read_files") as sp:
+            existing = self.get_existing_docs(file_paths)
+            states: List[DocumentState] = []
+            for path in file_paths:
+                try:
+                    st = os.stat(path)
+                except OSError:
+                    continue  # missing files are skipped (store.rs:613-616)
+                current = DocMeta(
+                    path=path,
+                    size_bytes=st.st_size,
+                    mtime=int(st.st_mtime),
+                    _version=CURRENT_EMBEDDING_VERSION,
                 )
-            elif (
-                prev.size_bytes != current.size_bytes
-                or prev.mtime != current.mtime
-                or prev._version != CURRENT_EMBEDDING_VERSION
-            ):
-                states.append(
-                    DocumentState.changed(DocumentInfo(
-                        path, read_file_text(path), current,
-                        prev_version=prev._version,
-                    ))
-                )
-            else:
-                states.append(DocumentState.unchanged(path))
+                prev = existing.get(path)
+                if prev is None:
+                    states.append(
+                        DocumentState.new(DocumentInfo(path, read_file_text(path), current))
+                    )
+                elif (
+                    prev.size_bytes != current.size_bytes
+                    or prev.mtime != current.mtime
+                    or prev._version != CURRENT_EMBEDDING_VERSION
+                ):
+                    states.append(
+                        DocumentState.changed(DocumentInfo(
+                            path, read_file_text(path), current,
+                            prev_version=prev._version,
+                        ))
+                    )
+                else:
+                    states.append(DocumentState.unchanged(path))
+            if sp:
+                read = [s.info.meta.size_bytes for s in states if s.info is not None]
+                sp.count("files", len(file_paths))
+                sp.count("changed", len(read))
+                sp.count("bytes", sum(read))
         return states
 
     # -- search ------------------------------------------------------------
@@ -1565,15 +1574,31 @@ class Store:
     ) -> List[List[RankedLine]]:
         """Batched search: Q query rows against the same path subset. In the
         daemon, concurrent calls of the same shape coalesce into one scan
-        (``store/coalesce.py``)."""
+        (``store/coalesce.py``). Its stage ``store_scan`` counts this
+        call's ``queries`` and the live ``rows`` of its documents."""
         from semtools_tpu_torch.store import coalesce
 
-        if coalesce.enabled():
-            return coalesce.search_batched(
-                self, query_vecs, subset_paths, top_k, max_distance,
-                self._search_batched_retry,
-            )
-        return self._search_batched_retry(query_vecs, subset_paths, top_k, max_distance)
+        with stage("store_scan") as sp:
+            if coalesce.enabled():
+                per = coalesce.search_batched(
+                    self, query_vecs, subset_paths, top_k, max_distance,
+                    self._search_batched_retry,
+                )
+            else:
+                per = self._search_batched_retry(query_vecs, subset_paths, top_k, max_distance)
+            if sp:
+                sp.count("queries", len(per))
+                sp.count("rows", self._live_rows(subset_paths))
+        return per
+
+    def _live_rows(self, subset_paths: Sequence[str]) -> int:
+        """Live rows of the documents in ``subset_paths``, by the layout the
+        last search read."""
+        cached = getattr(self, "_ranges_cache", None)
+        if cached is None:
+            return 0
+        wanted = set(subset_paths)
+        return sum(n for path, _, n in cached[1] if path in wanted)
 
     def _search_batched_retry(
         self,
@@ -1967,7 +1992,7 @@ class Store:
             # slots (0x08 rows) score true sim 0 and enter the pool only below
             # the margin; the re-rank drops unowned slots and falls back to the
             # exact path if fewer than `need` real rows remain.
-            with stage("tier_pool"):
+            with stage("tier_pool") as sp:
                 if mesh is not None:
                     ids = sharded.sharded_int4_deep_candidates_device(
                         q_dev, sc.corpus, sc.capacity, mesh, mask=mask, k_cut=max(need, 10))
@@ -1976,10 +2001,11 @@ class Store:
                         q_dev, sc.corpus, n_true=sc.capacity, mask=mask, k_cut=max(need, 10),
                     )
                 ids = ids.cpu().numpy()
-            with stage("tier_rerank"):
-                return self._rerank_candidates(
-                    ids, qs, owners, paths, need, top_k, max_distance,
-                )
+                sp.count("passes", 1)
+                sp.count("candidates", int(ids.shape[1]))
+            return self._rerank_candidates(
+                ids, qs, owners, paths, need, top_k, max_distance,
+            )
 
         oversample = self._int8_oversample(top_k, reduced_dim is not None, sel_rows)
 
@@ -2113,9 +2139,15 @@ class Store:
         k_target = min(oversample, sel_rows)
         k_sel = min(oversample + patch_cache._SLACK, sc.capacity)
         t_margin = _threshold_margin() if max_distance is not None else None
+        pooled = 0  # the pool's width a query so far
         while True:
-            with stage("tier_pool"):  # one pass of the pool's growth
+            with stage("tier_pool") as sp:  # one pass of the pool's growth
                 i, dq = _candidates(k_sel)
+                # each pass counts its growth: a search's passes sum to its
+                # final pool
+                sp.count("passes", 1)
+                sp.count("candidates", k_sel - pooled)
+                pooled = k_sel
             min_valid = min(_unique_valid(i[r]) for r in range(qn))
             # Threshold-mode completion: every row OUTSIDE the pool has
             # quantized distance >= the pool's worst member; once that
@@ -2132,10 +2164,9 @@ class Store:
                     | (worst > float(max_distance) + t_margin)
                 ))
             if (min_valid >= k_target and complete) or k_sel >= sc.capacity:
-                with stage("tier_rerank"):
-                    res = self._rerank_candidates(
-                        i, qs, owners, paths, need, top_k, max_distance
-                    )
+                res = self._rerank_candidates(
+                    i, qs, owners, paths, need, top_k, max_distance
+                )
                 if res is None or k_sel >= sc.capacity:
                     return res
                 if max_distance is not None:
@@ -2169,49 +2200,52 @@ class Store:
         scoring against the f32 originals. Returns None (exact-path
         fallback) when any query's valid candidates fall below ``need``.
         Shared by the int8/reduced oversample path and the int4 deep-
-        candidate path."""
-        qn = int(qs.shape[0])
-        mm = self._mmap("r")
-        if mm is None:
-            return None
-        uniq = np.unique(i.reshape(-1))
-        # -inf filler from a masked top_k wider than the subset (and the
-        # int4 extraction's sentinels) can carry indices in the padded
-        # region past the mmap; they are invalid (no owner) and never
-        # re-ranked, so drop them before the gather.
-        uniq = uniq[uniq < mm.shape[0]]
-        uniq_rows = np.asarray(mm[uniq])
-        del mm
-        out = []
-        for r in range(qn):
-            slots = i[r]
-            valid, ris, lines = owners(slots)
-            slots, ris, lines = slots[valid], ris[valid], lines[valid]
-            # Drop duplicate candidates, keeping the first (best-ranked)
-            # occurrence — see _unique_valid for why they exist.
-            _, first = np.unique(slots, return_index=True)
-            keep = np.zeros(len(slots), bool)
-            keep[first] = True
-            slots, ris, lines = slots[keep], ris[keep], lines[keep]
-            if len(slots) < need:
+        candidate path. Its stage ``tier_rerank`` counts the ``rows``
+        gathered."""
+        with stage("tier_rerank") as sp:
+            qn = int(qs.shape[0])
+            mm = self._mmap("r")
+            if mm is None:
                 return None
-            # Candidate order is tier-dependent (quantized rank for the
-            # oversample path, UNORDERED for the int4 extraction); put
-            # candidates in slot order first so the stable distance sort
-            # breaks exact-distance ties toward the lower corpus position
-            # — the exact tiers' contract (ops.scan ties -> lower index).
-            by_slot = np.argsort(slots, kind="stable")
-            slots, ris, lines = slots[by_slot], ris[by_slot], lines[by_slot]
-            rows = uniq_rows[np.searchsorted(uniq, slots)]
-            exact = 1.0 - rows @ qs[r]
-            order = np.argsort(exact, kind="stable")[:top_k]
-            if max_distance is not None:
-                order = order[exact[order] < max_distance]
-            out.append([
-                RankedLine(paths[int(ris[o])], int(lines[o]), float(exact[o]))
-                for o in order
-            ])
-        return out
+            uniq = np.unique(i.reshape(-1))
+            # -inf filler from a masked top_k wider than the subset (and the
+            # int4 extraction's sentinels) can carry indices in the padded
+            # region past the mmap; they are invalid (no owner) and never
+            # re-ranked, so drop them before the gather.
+            uniq = uniq[uniq < mm.shape[0]]
+            uniq_rows = np.asarray(mm[uniq])
+            del mm
+            sp.count("rows", len(uniq))
+            out = []
+            for r in range(qn):
+                slots = i[r]
+                valid, ris, lines = owners(slots)
+                slots, ris, lines = slots[valid], ris[valid], lines[valid]
+                # Drop duplicate candidates, keeping the first (best-ranked)
+                # occurrence — see _unique_valid for why they exist.
+                _, first = np.unique(slots, return_index=True)
+                keep = np.zeros(len(slots), bool)
+                keep[first] = True
+                slots, ris, lines = slots[keep], ris[keep], lines[keep]
+                if len(slots) < need:
+                    return None
+                # Candidate order is tier-dependent (quantized rank for the
+                # oversample path, UNORDERED for the int4 extraction); put
+                # candidates in slot order first so the stable distance sort
+                # breaks exact-distance ties toward the lower corpus position
+                # — the exact tiers' contract (ops.scan ties -> lower index).
+                by_slot = np.argsort(slots, kind="stable")
+                slots, ris, lines = slots[by_slot], ris[by_slot], lines[by_slot]
+                rows = uniq_rows[np.searchsorted(uniq, slots)]
+                exact = 1.0 - rows @ qs[r]
+                order = np.argsort(exact, kind="stable")[:top_k]
+                if max_distance is not None:
+                    order = order[exact[order] < max_distance]
+                out.append([
+                    RankedLine(paths[int(ris[o])], int(lines[o]), float(exact[o]))
+                    for o in order
+                ])
+            return out
 
     def load_subset_matrix(
         self, subset_paths: Sequence[str]

@@ -24,12 +24,13 @@ and its start and end on ``time.perf_counter_ns()``, and the counters the
 block added (:meth:`_Span.count`). The parent is the span open on the same
 thread (a context variable, so threads never mix); a span opened with none
 open starts a request of its own, unless :func:`request` opened one. A
-stage is a span too. While recording, each pass of Python's garbage
-collector is a ``gc`` span (its generation and the objects it freed) under
-the span open on the thread that ran it. Records stay in memory: a
-:func:`record` block hands over the records made during it. Spans never
-synchronise and go into no stage total. With no recorder on, :func:`span`
-and :func:`request` cost one check of a module flag.
+stage is a span too, and yields it, so its block can count on it. While
+recording, each pass of Python's garbage collector is a ``gc`` span (its
+generation and the objects it freed) under the span open on the thread
+that ran it. Records stay in memory: a :func:`record` block hands over the
+records made during it. Spans never synchronise and go into no stage
+total. With no recorder on, :func:`span` and :func:`request` cost one
+check of a module flag.
 """
 
 from __future__ import annotations
@@ -149,9 +150,13 @@ class _Request:
 
 
 class _Off:
-    """What :func:`span` and :func:`request` hand out with no recorder on."""
+    """What :func:`span` and :func:`request` hand out with no recorder on.
+    It is false, so a block can skip work that only feeds a counter."""
 
     __slots__ = ()
+
+    def __bool__(self) -> bool:
+        return False
 
     def __enter__(self) -> "_Off":
         return self
@@ -259,24 +264,25 @@ def enabled() -> bool:
 
 
 @contextlib.contextmanager
-def stage(name: str) -> Iterator[None]:
+def stage(name: str) -> Iterator[object]:
     """Time a pipeline stage (no-op unless SEMTOOLS_TPU_TIMINGS is set);
-    also a span while a recorder is on."""
+    also a span while a recorder is on. Yields the span, or :data:`_OFF`
+    with no recorder on, so the block can :meth:`~_Span.count`."""
     if not enabled():
         if not _on:
-            yield
+            yield _OFF
             return
-        with _Span(name):
-            yield
+        with _Span(name) as sp:
+            yield sp
         return
     global _registered
     if not _registered:
         _registered = True
         atexit.register(report)
-    with (_Span(name) if _on else _OFF):
+    with (_Span(name) if _on else _OFF) as sp:
         t0 = time.perf_counter()
         try:
-            yield
+            yield sp
         finally:
             torch = sys.modules.get("torch")
             if torch is not None and torch.cuda.is_initialized():

@@ -305,3 +305,116 @@ def test_the_device_trace_holds_the_spans(quiet, monkeypatch, tmp_path):
     assert outer["ts"] <= inner["ts"] and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
     anchor = next(e for e in events if e.get("name") == tracing.ANCHOR)
     assert anchor["ts"] <= outer["ts"]
+
+
+# -- the workspace search's spans and counters --------------------------------
+
+TEXTS = ["alpha beta\ngamma delta\nepsilon\n", "zeta eta\ntheta\n", "iota kappa lambda\nmu\n"]
+
+
+@pytest.fixture
+def workspace(quiet, tmp_path, monkeypatch):
+    """Three files and a workspace ``t`` of a test ``HOME`` of its own, the
+    store's serving variables unset; the device cache emptied after."""
+    from semtools_tpu_torch.store import Workspace, WorkspaceConfig, device_cache
+
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    for k in [k for k in os.environ if k.startswith("SEMTOOLS_TPU_") and k not in
+              ("SEMTOOLS_TPU_NO_FETCH", "SEMTOOLS_TPU_ALLOW_FALLBACK")]:
+        monkeypatch.delenv(k)
+    files = []
+    for i, text in enumerate(TEXTS):
+        p = tmp_path / f"f{i}.txt"
+        p.write_text(text)
+        files.append(p)
+    Workspace(WorkspaceConfig(name="t", root_dir=str(tmp_path / "store"))).save()
+    yield files
+    device_cache.invalidate()
+
+
+def _workspace_spans(files):
+    """The spans of one workspace search over ``files``, by name (the
+    collector's left out), after checking they are one request under
+    ``search``."""
+    from semtools_tpu_torch.models.static_model import StaticModel
+    from semtools_tpu_torch.search import SearchConfig, search_with_workspace_batched
+
+    model = StaticModel.fallback(device="cpu")
+    with tracing.record() as spans:
+        out = search_with_workspace_batched([str(p) for p in files], ["alpha", "theta"], model,
+                                            SearchConfig(top_k=2), "t")
+    assert len(out) == 2 and all(out)
+    spans = [s for s in spans if s.name != "gc"]
+    root = next(s for s in spans if s.name == "search")
+    assert root.parent is None and all(s.request == root.request for s in spans)
+    by_name = {}
+    for s in spans:
+        by_name.setdefault(s.name, []).append(s)
+    return by_name
+
+
+def test_a_workspace_search_counts_what_it_reads_and_scans(workspace):
+    rows = sum(len(t.splitlines()) for t in TEXTS)
+    cold = _workspace_spans(workspace)
+    assert {"store.open", "store.close", "read_files", "store_scan"} <= set(cold)
+    kids = {s.name for same in cold.values() for s in same
+            if s.parent == cold["search"][0].span}
+    assert {"embed_query", "store.open", "read_files", "store_scan", "store.close"} <= kids
+    assert cold["store.open"][0].end <= cold["read_files"][0].start
+    assert cold["store_scan"][0].end <= cold["store.close"][0].start
+    sizes = [p.stat().st_size for p in workspace]
+    assert cold["read_files"][0].attrs == {"files": 3, "changed": 3, "bytes": sum(sizes)}
+    assert cold["store_scan"][0].attrs == {"rows": rows, "queries": 2}
+
+    workspace[1].write_text(TEXTS[1] + "nu xi\n")  # one file edited
+    warm = _workspace_spans(workspace)
+    assert warm["read_files"][0].attrs == {"files": 3, "changed": 1,
+                                           "bytes": workspace[1].stat().st_size}
+    assert warm["store_scan"][0].attrs == {"rows": rows + 1, "queries": 2}
+
+
+def test_the_int8_tier_counts_its_pool_and_its_re_rank(workspace, monkeypatch):
+    monkeypatch.setenv("SEMTOOLS_TPU_STORE_INT8", "1")
+    got = _workspace_spans(workspace)
+    pool, rerank = got["tier_pool"], got["tier_rerank"]
+    assert all(set(s.attrs) == {"candidates", "passes"} for s in pool)
+    assert sum(s.attrs["passes"] for s in pool) == len(pool) >= 1
+    width = sum(s.attrs["candidates"] for s in pool)
+    rows = sum(len(t.splitlines()) for t in TEXTS)
+    assert 2 <= width  # the top-k's 2 at least, for each query
+    assert all(set(s.attrs) == {"rows"} and 2 <= s.attrs["rows"] <= rows for s in rerank)
+
+
+def test_a_retried_scan_counts_its_call_once(workspace, monkeypatch):
+    """A concurrent compact makes the store re-run its scan; the call's
+    ``store_scan`` stage still counts its queries and rows once."""
+    from semtools_tpu_torch.store import Store
+
+    real, failed = Store._search_batched_impl, []
+
+    def stale_once(self, *args, **kw):  # the first pass faults after its scan
+        out = real(self, *args, **kw)
+        if not failed:
+            failed.append(1)
+            raise FileNotFoundError("a retired vector file")
+        return out
+
+    monkeypatch.setattr(Store, "_search_batched_impl", stale_once)
+    got = _workspace_spans(workspace)
+    assert failed
+    rows = sum(len(t.splitlines()) for t in TEXTS)
+    assert [s.attrs for s in got["store_scan"]] == [{"rows": rows, "queries": 2}]
+
+
+def test_a_stage_yields_something_to_count_on_with_nothing_on(quiet, monkeypatch):
+    monkeypatch.delenv("SEMTOOLS_TPU_TIMINGS", raising=False)
+    with tracing.stage("x") as sp:
+        sp.count("rows", 3)
+    assert sp is tracing._OFF and not sp
+    assert tracing.timings() == []
+    with tracing.record() as spans:
+        with tracing.stage("x") as sp:
+            assert sp
+            sp.count("rows", 3)
+            sp.count("rows", 1)
+    assert [s.attrs for s in spans if s.name == "x"] == [{"rows": 4}]
